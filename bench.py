@@ -3,8 +3,8 @@
 Runs a double-gyre-scale configuration (p=4, 2 layers, N_btp=20 x 5-stage
 SSPRK x 2 barotropic solves per baroclinic dt — the reference's production
 sub-cycling intensity, Examples/double_gyre/numo3d.in:25-26,53) on the
-default JAX device (TPU under the driver) in float32 (within the
-reference's own -DSINGLE design envelope, src/mod_types.F90:19-22).
+GPU in float32 (within the reference's own -DSINGLE design envelope,
+src/mod_types.F90:19-22). Without a GPU it fails unless --cpu is given.
 
 Prints ONE JSON line:
   {"metric": "dg_gridpoint_steps_per_s", "value": N, "unit": "...", "vs_baseline": N}
@@ -13,8 +13,8 @@ grid-points = nelem * nq^2 * nlayers (BASELINE.md); value = grid-points *
 baroclinic-steps / wall-second. vs_baseline compares against this
 framework's own float64 CPU single-core throughput on the reference's CI
 bump config measured in round 1 (28.4e3 gp-steps/s; the reference repo
-publishes no absolute numbers — BASELINE.md), i.e. the speedup of one TPU
-chip over the serial validation build.
+publishes no absolute numbers — BASELINE.md), i.e. the speedup of one
+card over the serial validation build.
 """
 import argparse
 import json
@@ -35,11 +35,12 @@ def main():
     args = p.parse_args()
 
     import os
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
+
     import jax
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+
+    from hnumo_tpu.driver import card_line, select_platform
+    select_platform(args.cpu)
+    card = "cpu" if args.cpu else card_line()
 
     from hnumo_tpu import compile_cache
     compile_cache.enable()
@@ -63,9 +64,9 @@ def main():
         botfr=1, cd_mlswe=1.0e-7, method_visc=2, visc_mlswe=100.0,
         dtype="float64" if args.f64 else "float32",
     )
-    # bench hygiene: a loaded host contaminates dispatch-sensitive TPU
-    # numbers (BENCH_r04 lost 41% to a concurrent CPU campaign) — warn
-    # loudly if anything else is burning CPU in the measurement window
+    # bench hygiene: a loaded host contaminates dispatch-sensitive device
+    # numbers — warn loudly if anything else is burning CPU in the
+    # measurement window
     try:
         load1 = os.getloadavg()[0]
         ncpu = os.cpu_count() or 1
@@ -99,11 +100,12 @@ def main():
           f"grid={nel}x{nel} p={args.nop} L={args.nlayers} "
           f"N_btp={m.static.n_btp} ({n_rhs} btp RHS/dt) "
           f"dtype={cfg.dtype}: {dt_wall/args.steps*1e3:.1f} ms/step, "
-          f"compile+step1={compile_s:.1f}s, ok={bool(s.ok)}", file=sys.stderr)
+          f"compile+step1={compile_s:.1f}s, ok={bool(s.ok)} [{card}]",
+          file=sys.stderr)
     print(json.dumps({
         "metric": "dg_gridpoint_steps_per_s",
         "value": round(gps, 1),
-        "unit": "grid-points*baroclinic-steps/s/chip",
+        "unit": "grid-points*baroclinic-steps/s/card",
         "vs_baseline": round(gps / BASELINE_GPS, 2),
     }))
 

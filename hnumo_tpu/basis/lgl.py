@@ -1,6 +1,6 @@
 """Legendre-Gauss-Lobatto points, weights and Lagrange bases.
 
-TPU-native rebuild of the reference's basis layer
+Array-native rebuild of the reference's basis layer
 (reference: src/mod_legendre.F90:54-433, src/mod_basis.F90:60-186).
 
 Everything here is *setup-time* code: it runs once in float64 NumPy on the

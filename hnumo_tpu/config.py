@@ -68,66 +68,31 @@ class Config:
 
     # --- non-reference extensions ---
     dtype: str = "float64"         # compute dtype ("float64" validation, "float32" perf)
-    use_pallas: str = "auto"       # fused TPU kernels: "auto" | "on" | "off"
-    # Whole-stage fused Pallas tail (ops/pallas_btp_tail): "on" | "off".
-    # OFF by default: at the flagship 32x32 p=4 f32 config the three-kernel
-    # tail measured 68 ms/step vs 22 ms/step for the default path (Pallas
-    # volume kernel + XLA faces) on v5e — per-stage pallas_call dispatch
-    # overhead x3 kernels x~200 stages dominates at these sizes (A/B table
-    # in docs/performance.md). Kept for large-grid experiments.
-    fused_tail: str = "off"
-    # Folded uniform-geometry volume kernel ("on" | "off"). OFF by default:
-    # folding the constant metrics into the Kronecker operator tables (and
-    # fusing the viscosity gradient) measured SLOWER than the general-
-    # geometry volume kernel at every production size on v5e (34.5 vs
-    # 23.8 ms/step at 32x32, 89.7 vs 71.8 at 64x64 — A/B table in
-    # docs/performance.md). Kept for affine-mesh experiments; the fused
-    # tail requires and implies these operators independently.
-    uni_volume: str = "off"
+    # Fused barotropic volume kernel (ops/pallas_btp.py, Pallas through
+    # Triton): "auto" | "on" | "off". "on" compiles it on a GPU and runs it
+    # in interpret mode on the CPU (tests); "auto" follows the rule in
+    # core/init.py:resolve_pallas.
+    use_pallas: str = "auto"
     # Batch the two face directions of the barotropic stage on one flat face
     # axis ("on" | "off"): halves the per-stage XLA kernel count in the face
     # pipeline (the per-direction calls cannot be batched by XLA because the
     # x/y face counts differ). Same formulas on the same values; results
     # agree with the per-direction path up to XLA fusion/FMA reassociation
     # (~1e-14 absolute at f64 on the bump case; bitwise on others).
-    # "auto" (default): on up to 8192 elements, off above — clean-host A/B
-    # on v5e (docs/performance.md, r5): wins 75.0 vs 80.5 ms/step at 64x64,
-    # loses 279.9 vs 269.6 at 128x128 and 1374 vs 1247 at 256x256 (the
-    # per-solve concat copies outgrow the launch savings), so the 8192
-    # cutoff sits inside the measured 4096->16384 crossover. The
-    # quad-family viscosity (method_visc=1) keeps the per-direction path
-    # (StaticConfig gates it off there).
+    # "auto" (default): on up to 8192 elements, off above, where the
+    # per-solve concatenation copies outgrow the launch savings. The cutoff
+    # has not been measured on the GPU yet. The quad-family viscosity
+    # (method_visc=1) keeps the per-direction path (StaticConfig gates it
+    # off there).
     batched_faces: str = "auto"
     # Run the kstages RK stages of the barotropic sub-cycle as a lax.scan
     # over the coefficient tables instead of Python-unrolling them into the
     # sub-cycling scan body ("auto" | "on" | "off"). Cuts the step HLO and
-    # cold compile time by ~kstages x (44 vs 78 s at 64x64 on v5e) at the
-    # price of per-iteration loop overhead in the launch-latency-bound
-    # regime (34.3 vs 22.5 ms/step at 32x32 f32). "auto": ON for the XLA
-    # path (f64/CPU validation runs, where compile dominates), OFF for the
-    # Pallas TPU path (where runtime is king). Same update formulas; f64
-    # trajectories differ only by XLA fusion/reassociation roundoff.
+    # cold compile time by ~kstages x, at the price of per-iteration loop
+    # overhead where the stage is launch-bound. "auto": ON off the fused
+    # kernel path, OFF on it. Same update formulas; f64 trajectories differ
+    # only by XLA fusion/reassociation roundoff.
     scan_stages: str = "auto"
-    # Whole-solve Pallas megakernel ("auto" | "on" | "off"): the ENTIRE
-    # barotropic sub-cycling (N_btp x kstages stages) runs as ONE
-    # pallas_call per solve with VMEM-resident state/averages and in-kernel
-    # roll-based neighbor exchange (ops/pallas_mega.py). Envelope: f32 TPU,
-    # uniform brick, non-periodic walls, rk35, nodal/no viscosity, single
-    # device; outside it the default path runs regardless of this flag.
-    # "auto" (default) = on within the envelope (incl. <=1024 elements:
-    # whole-grid VMEM residency). Clean-host runtime matches the default
-    # path (17.1 vs 17.0 ms/step at 32x32 on v5e) but cold compile drops
-    # 45.6 -> 7.9 s and the step is immune to host-dispatch jitter (17.5
-    # vs 20.3 under load) — docs/performance.md. Parity gated at 1e-11 by
-    # tests/test_mega.py.
-    mega: str = "auto"
-    # Matmul precision inside the megakernel: "highest" (bf16x6, f32-exact
-    # MXU passes — the default, matching the rest of the model) | "bf16"
-    # (single-pass: 9.5 vs 17.1 ms/step at 32x32, but the 100-day
-    # double-gyre campaign shows the free surface diverging to +-4400 m
-    # while KE still tracks to 1% — docs/performance.md "Precision",
-    # docs/artifacts/dgyre_f32_tpu_bf16.json. KE-only experiments ONLY.)
-    mega_precision: str = "highest"
     # Reproduce the reference's wind/bottom-stress vertical distribution
     # VERBATIM, including its indexing slip (src/mod_create_rhs_mlswe.F90:
     # 380-382: the pressure accumulator adds the LAST layer's (dp',u',v')
@@ -231,7 +196,7 @@ def parse_namelist(path: str | Path) -> dict:
 
 
 # Reference namelist members (src/mod_input.F90:320-381) that are accepted
-# but have no effect on the MLSWE/TPU build: NUMA-3D lineage (z dims, sponge,
+# but have no effect on this MLSWE build: NUMA-3D lineage (z dims, sponge,
 # filter, OCCA/GPU plumbing), AMR scaffolding inert in every shipped case
 # (refinement_levels_h=0), and legacy grid-creation switches. Anything not in
 # this set and not a Config field triggers a warning (a typo'd key must not

@@ -348,7 +348,7 @@ def layer_momentum_fluxes(static, P: Precomputed, g: DeviceGeom, bc: BCs,
 
             Loops over source layers kt accumulating into target-sized
             (L, F, nq) arrays — O(L) memory instead of materializing the
-            full (L, L, F, nq) pair tensor (VERDICT r1 item 6; the
+            full (L, L, F, nq) pair tensor (the
             reference's nlayers² per-point loop, :662-707, has the same
             O(L²) work but O(1) storage). The intersection length
             min(tops) - max(bots) equals the MINIMUM of the four pairwise

@@ -19,10 +19,9 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.dg import DeviceGeom, grad_nodal, interp_n2q, scatter_volume, scatter_volume_nodal
-from .faces import (BCs, apply_wall_projection, extract_faces_from_slabs,
-                    extract_faces_multi, extract_faces_stacked, face_n2q,
-                    face_quad_scatter, face_views_x, face_views_y,
-                    scatter_face_x, scatter_face_y, wall_projection_masks)
+from .faces import (BCs, apply_wall_projection, extract_faces_multi,
+                    extract_faces_stacked, face_n2q, face_quad_scatter,
+                    scatter_face_x, scatter_face_y)
 from .types import BtpAverages, BtpFaceAvg, CouplingFields, Pair, Precomputed
 
 
@@ -116,7 +115,7 @@ def _catf(ax_arr, ay_arr):
     normal tables) then runs BOTH directions in one batched pipeline — the
     x and y face counts differ ((ly)(lx+1) vs (ly+1)(lx)) so XLA cannot
     batch the per-direction calls itself, and at small grids the duplicated
-    kernel launches dominate the stage (docs/performance.md attribution)."""
+    kernel launches dominate the stage)."""
     return jnp.concatenate([_flatf(ax_arr), _flatf(ay_arr)], axis=-2)
 
 
@@ -428,77 +427,22 @@ def _averages_view(static, vol, nod, fxa, fya, gvx, gvy, graduvb) -> BtpAverages
                        faces=Pair(face(fxa, gvx), face(fya, gvy)))
 
 
-def build_vol_operators(static, g: DeviceGeom, P: Precomputed):
-    """Flat padded Pallas volume operator tables (state-independent).
-
-    Everything here depends only on geometry and precomputed physics
-    tables, so single-device callers evaluate it once at model build and
-    pass the result through `barotropic_solve(vol_ops=...)` — keeping it
-    out of the per-step program (it would otherwise be recomputed every
-    baroclinic step, ~7 ms at 32x32 on v5e). Returns None when the Pallas
-    path is off."""
-    if not static.use_pallas or static.fused_tail:
-        return None
-    from ..ops.pallas_btp import (operators_from_tables, operators_uniform,
-                                  pad_e, pad_elements)
-
-    ney, nex = g.wjac.shape[0], g.wjac.shape[1]
-    nq, ngl = g.wjac.shape[-1], g.wjac_df.shape[-1]
-    Ep, _ = pad_elements(ney * nex, npts=ngl * ngl, nqq=nq * nq)
-    if static.uni_volume:
-        ops = operators_uniform(g, P, static.flat_bottom)
-        return ops._replace(ptab=pad_e(ops.ptab, Ep),
-                            pbp_df=pad_e(ops.pbp_df, Ep, axis=0))
-    ops = operators_from_tables(g, P)
-    return ops._replace(met=pad_e(ops.met, Ep),
-                        ptab=pad_e(ops.ptab, Ep),
-                        pbp_df=pad_e(ops.pbp_df, Ep, axis=0))
-
-
 def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
-                     coup: CouplingFields, qb_df, qprime_df, vol_ops=None,
-                     mega_ops=None):
+                     coup: CouplingFields, qb_df, qprime_df):
     """SSPRK barotropic sub-cycling over N_btp steps x kstages stages.
 
     Reference ti_barotropic_ssprk_mlswe (src/mod_rk_mlswe.F90:19-151).
     The 23 running averages are carried as 7 stacked accumulator arrays
     (one fused add per family per stage); when static.use_pallas the fused
-    Pallas volume kernel (ops.pallas_btp) computes the volume RHS and
-    updates the volume/nodal accumulators in place.
+    volume kernel (ops.pallas_btp) computes the volume RHS and updates the
+    volume/nodal accumulators in place.
     Returns (qb_df at t+dt, normalized BtpAverages).
     """
-    if static.mega and mega_ops is not None:
-        from ..ops.pallas_mega import barotropic_solve_mega
-
-        prec = (jax.lax.Precision.DEFAULT if static.mega_bf16
-                else jax.lax.Precision.HIGHEST)
-        return barotropic_solve_mega(static, P, g, bc, coup, qb_df,
-                                     qprime_df, mega_ops,
-                                     interpret=static.pallas_interpret,
-                                     prec=prec)
-    if static.fused_tail:
-        return _barotropic_solve_fused(static, P, g, bc, coup, qb_df,
-                                       qprime_df)
     dtype = qb_df.dtype
     ney, nex = g.wjac.shape[0], g.wjac.shape[1]
     nq, ngl = g.wjac.shape[-1], g.wjac_df.shape[-1]
-    E = ney * nex
-    if static.use_pallas:
-        # the Pallas path carries the volume/nodal accumulators FLAT
-        # (element-major (C, E, m^2)) across the whole scan: per-stage
-        # reshapes between the structured and flat layouts are physical
-        # relayouts on TPU (~90 us/stage at 64x64) — flat carries make them
-        # one-time costs outside the scan. E is padded so the kernel tile
-        # never degenerates for awkward element counts (VERDICT r2 item 7).
-        from ..ops.pallas_btp import pad_elements
-
-        Ep, _ = pad_elements(E, npts=ngl * ngl, nqq=nq * nq)
-        accv0 = jnp.zeros((12, Ep, nq * nq), dtype)
-        accn0 = jnp.zeros((3, Ep, ngl * ngl), dtype)
-    else:
-        Ep = E
-        accv0 = jnp.zeros((12, ney, nex, nq, nq), dtype)
-        accn0 = jnp.zeros((3, ney, nex, ngl, ngl), dtype)
+    accv0 = jnp.zeros((12, ney, nex, nq, nq), dtype)
+    accn0 = jnp.zeros((3, ney, nex, ngl, ngl), dtype)
     Fx = ney * (nex + 1)
     F = Fx + (ney + 1) * nex
     if static.batched_faces:
@@ -530,46 +474,21 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
     beta = P.ssprk_beta
     kstages = static.kstages
 
-    # constant over the whole solve: bottom-layer primes at quad points and
-    # (pallas path) the flattened operator tables + coupling stack
+    # constant over the whole solve: bottom-layer primes at quad points
     qpl_q = interp_n2q(g, qprime_df[:, -1])
     if static.use_pallas:
-        from ..ops.pallas_btp import (btp_volume_pallas,
-                                      btp_volume_pallas_uni, eflat, pad_e)
+        from ..ops.pallas_btp import btp_volume_pallas, operators
 
-        coup_flat = pad_e(jnp.stack([
-            eflat(coup.Q_uu_dp), eflat(coup.Q_uv_dp),
-            eflat(coup.Q_vv_dp), eflat(coup.dH_bcl)]), Ep)
-        # the operator tables are state-independent; single-device callers
-        # precompute them ONCE at model build (Model._vol_ops) instead of
-        # per step — under shard_map they are built here from the local
-        # block (cost amortized over N_btp*kstages stages)
-        ops = vol_ops if vol_ops is not None else build_vol_operators(
-            static, g, P)
-        if static.uni_volume:
-            qpln_flat = pad_e(eflat(qprime_df[:, -1]), Ep)
-        else:
-            qplq_flat = pad_e(eflat(qpl_q), Ep)
+        ops = operators(g.psiq, g.dpsiq)
 
     def stage_volume(qb1, accv, accn):
         """Volume RHS + volume/nodal accumulator update for one stage."""
         if static.use_pallas:
-            qbf = pad_e(eflat(qb1), Ep)
-            if static.uni_volume:
-                rhs_f, accv, accn = btp_volume_pallas_uni(
-                    ops, qbf, qpln_flat, accv, accn, coup_flat,
-                    grav=static.gravity, botfr=static.botfr,
-                    cd=static.cd_mlswe, alpha_bot=static.alpha_bot,
-                    flat_bottom=static.flat_bottom,
-                    interpret=static.pallas_interpret)
-            else:
-                rhs_f, accv, accn = btp_volume_pallas(
-                    ops, qbf, qplq_flat, coup_flat, accv, accn,
-                    grav=static.gravity, botfr=static.botfr,
-                    cd=static.cd_mlswe, alpha_bot=static.alpha_bot,
-                    interpret=static.pallas_interpret)
-            rhs = rhs_f[:, :E].reshape(3, ney, nex, ngl, ngl)
-            return rhs, accv, accn
+            return btp_volume_pallas(
+                ops, g, P, coup, qb1, qpl_q, accv, accn,
+                grav=static.gravity, botfr=static.botfr, cd=static.cd_mlswe,
+                alpha_bot=static.alpha_bot,
+                interpret=static.pallas_interpret)
         # XLA path: nodal accumulators BEFORE the stage RHS (reference :90-92);
         # mu2_df = ope_df^2 - 1 stored in conditioned form
         t_df = qb1[1] * P.one_over_pbprime_df
@@ -637,7 +556,7 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
 
         if static.scan_stages:
             # one compiled stage body, scanned over the coefficient tables:
-            # ~kstages x smaller step HLO (compile-time, VERDICT r4 item 2)
+            # ~kstages x smaller step HLO and compile time
             carry, _ = jax.lax.scan(
                 stage_body, carry, (a, beta, jnp.arange(kstages)))
         else:
@@ -664,190 +583,4 @@ def barotropic_solve(static, P: Precomputed, g: DeviceGeom, bc: BCs,
         agy = agf[:, :, Fx:].reshape(2, 4, ney + 1, nex, ngl)
     else:
         vol, nod, afx, afy, agx, agy, agrad = (acc * n_inv for acc in accs)
-    if static.use_pallas:
-        # back from the flat padded carry layout to the structured one
-        vol = vol[:, :E].reshape(12, ney, nex, nq, nq)
-        nod = nod[:, :E].reshape(3, ney, nex, ngl, ngl)
-    return qb, _averages_view(static, vol, nod, afx, afy, agx, agy, agrad)
-
-
-def _barotropic_solve_fused(static, P: Precomputed, g: DeviceGeom, bc: BCs,
-                            coup: CouplingFields, qb_df, qprime_df):
-    """Whole-stage fused Pallas barotropic solve (ops.pallas_btp_tail).
-
-    Three kernels per stage — volume(+gradient), all-faces flux, update —
-    plus one 8-channel batched halo exchange. The barotropic state and every
-    accumulator are carried FLAT (element- / face-major) across the whole
-    sub-cycling scan; structured layouts are reconstructed once at the end.
-    Mathematically identical to the XLA path up to matmul reassociation
-    (parity: tests/test_pallas.py)."""
-    from ..ops.pallas_btp import (btp_volume_grad_pallas_uni,
-                                  btp_volume_pallas_uni, eflat,
-                                  operators_uniform, pad_e, pad_elements)
-    from ..ops.pallas_btp_tail import (build_face_tables, build_update_ops,
-                                       btp_faces_pallas, btp_update_pallas,
-                                       _fflat, _pad_f)
-
-    dtype = qb_df.dtype
-    ney, nex = g.wjac.shape[0], g.wjac.shape[1]
-    nq, ngl = g.wjac.shape[-1], g.wjac_df.shape[-1]
-    npts, nqq = ngl * ngl, nq * nq
-    E = ney * nex
-    Ep, _ = pad_elements(E, npts=npts, nqq=nqq)
-    use_visc = static.use_visc
-    interp = static.pallas_interpret
-
-    ops = operators_uniform(g, P, static.flat_bottom, fold_massinv=True,
-                            with_grad=use_visc)
-    ops = ops._replace(ptab=pad_e(ops.ptab, Ep),
-                       pbp_df=pad_e(ops.pbp_df, Ep, axis=0))
-    uops = build_update_ops(static, P, g, Ep)
-    tabs = build_face_tables(P, coup, g.psiq, use_visc)
-    Fp, nfx, nfy = tabs.Fp, tabs.nfx, tabs.nfy
-
-    coup_flat = pad_e(jnp.stack([
-        eflat(coup.Q_uu_dp), eflat(coup.Q_uv_dp),
-        eflat(coup.Q_vv_dp), eflat(coup.dH_bcl)]), Ep)
-    qpln_flat = pad_e(eflat(qprime_df[:, -1]), Ep)
-    mu_w, mv_w = wall_projection_masks((ney, nex, ngl, ngl), bc, dtype)
-    mask = pad_e(jnp.stack([eflat(mu_w), eflat(mv_w)]), Ep)
-    if use_visc:
-        pbpv = pad_e(eflat(coup.pbprime_visc)[None], Ep)
-        bdg = pad_e(eflat(coup.btp_dpp_graduv), Ep)
-    else:
-        pbpv = bdg = None
-
-    accv0 = jnp.zeros((12, Ep, nqq), dtype)
-    accn0 = jnp.zeros((3, Ep, npts), dtype)
-    af0 = jnp.zeros((16, Fp, nq), dtype)
-    ag0 = jnp.zeros((8, Fp, ngl), dtype)
-    agr0 = jnp.zeros((4, Ep, npts), dtype)
-    acc0 = (accv0, accn0, af0) + ((ag0, agr0) if use_visc else ())
-
-    axes = tuple(a for a in (bc.ax, bc.ay) if a is not None)
-
-    def _vary(x):
-        vma = getattr(jax.typeof(x), "vma", frozenset())
-        need = tuple(a for a in axes if a not in vma)
-        return jax.lax.pcast(x, need, to="varying") if need else x
-
-    if axes:
-        acc0 = jax.tree_util.tree_map(_vary, acc0)
-    a = P.ssprk_a
-    beta = P.ssprk_beta
-    kstages = static.kstages
-    n_tr = 8 if use_visc else 4
-    vec_pairs = ((2, 3), (4, 5), (6, 7)) if use_visc else ((2, 3),)
-
-    def slabs(qf):
-        """Edge slabs (C, ney, nex, ngl) from the flat (C, Ep, npts) field."""
-        C = qf.shape[0]
-        q = qf[:, :E]
-        east = q[:, :, ngl - 1::ngl].reshape(C, ney, nex, ngl)
-        west = q[:, :, 0::ngl].reshape(C, ney, nex, ngl)
-        north = q[:, :, (ngl - 1) * ngl:].reshape(C, ney, nex, ngl)
-        south = q[:, :, :ngl].reshape(C, ney, nex, ngl)
-        return east, west, north, south
-
-    def pack_traces(xt, yt):
-        return _pad_f(jnp.concatenate(
-            [_fflat(xt), _fflat(yt)], axis=1), Fp)
-
-    def edge_pack(Sflat, nchan, negate=False):
-        """(n, Fp, ngl) face values -> signed element edge stack
-        (n, Ep, 4*ngl) ordered [W, E, S, N] (kernel U's Escat rows)."""
-        Sx = Sflat[:, :nfx].reshape(nchan, ney, nex + 1, ngl)
-        Sy = Sflat[:, nfx:nfx + nfy].reshape(nchan, ney + 1, nex, ngl)
-        if negate:
-            Sx, Sy = -Sx, -Sy
-        Sw, Se = face_views_x(Sx, bc)
-        Ss, Sn = face_views_y(Sy, bc)
-        flat = [v.reshape(nchan, E, ngl) for v in (Sw, Se, Ss, Sn)]
-        return pad_e(jnp.concatenate(flat, axis=-1), Ep)
-
-    def one_btp_step(carry, _):
-        qb, qb2, accv, accn, af, *rest = carry
-        if use_visc:
-            ag, agr = rest
-        qb0 = qb
-        qb1 = qb
-        for ik in range(kstages):
-            # kernel A: volume RHS + vol/nodal accumulators (+ gradient)
-            if use_visc:
-                rhs, accv, accn, gv, agr = btp_volume_grad_pallas_uni(
-                    ops, qb1, qpln_flat, accv, accn, coup_flat, agr,
-                    grav=static.gravity, botfr=static.botfr,
-                    cd=static.cd_mlswe, alpha_bot=static.alpha_bot,
-                    flat_bottom=static.flat_bottom, interpret=interp)
-            else:
-                rhs, accv, accn = btp_volume_pallas_uni(
-                    ops, qb1, qpln_flat, accv, accn, coup_flat,
-                    grav=static.gravity, botfr=static.botfr,
-                    cd=static.cd_mlswe, alpha_bot=static.alpha_bot,
-                    flat_bottom=static.flat_bottom, interpret=interp)
-                gv = None
-
-            # batched halo exchange + trace packing (one ppermute per
-            # direction-sense for the whole [qb, graduv] channel stack);
-            # concatenate the thin edge SLABS, not the full fields
-            if use_visc:
-                slb = tuple(jnp.concatenate([sq, sg])
-                            for sq, sg in zip(slabs(qb1), slabs(gv)))
-            else:
-                slb = slabs(qb1)
-            xl, xr, yl, yr = extract_faces_from_slabs(
-                *slb, bc, vec_pairs=vec_pairs)
-            trL = pack_traces(xl, yl)
-            trR = pack_traces(xr, yr)
-
-            # kernel F: all-faces flux + face accumulators
-            if use_visc:
-                S, Sv, af, ag = btp_faces_pallas(
-                    tabs, trL, trR, af, ag, use_visc=True, interpret=interp)
-                vedges = edge_pack(Sv, 2, negate=True)
-            else:
-                S, _, af, _ = btp_faces_pallas(
-                    tabs, trL, trR, af, None, use_visc=False,
-                    interpret=interp)
-                vedges = None
-            edges = edge_pack(S, 3)
-
-            # kernel U: edge scatter + viscosity volume + SSPRK combine
-            w = jnp.concatenate([a[ik], (static.dt_btp * beta[ik])[None]])
-            qb1_new = btp_update_pallas(
-                uops, w, rhs, edges, vedges, qb0, qb1, qb2, gv, pbpv, bdg,
-                mask, use_visc=use_visc, interpret=interp)
-            qb1 = qb1_new
-            if kstages == 5 and ik == 1:
-                qb2 = qb1
-        new_carry = (qb1, qb2, accv, accn, af)
-        if use_visc:
-            new_carry += (ag, agr)
-        return new_carry, None
-
-    qbf0 = pad_e(eflat(qb_df), Ep)
-    qb2_0 = jnp.zeros_like(qbf0)
-    if axes:
-        qbf0 = _vary(qbf0)
-        qb2_0 = _vary(qb2_0)
-    (qbf, _, *accs), _ = jax.lax.scan(
-        one_btp_step, (qbf0, qb2_0) + acc0, None, length=static.n_btp)
-
-    n_inv = jnp.asarray(1.0 / (kstages * static.n_btp), dtype)
-    if use_visc:
-        vol, nod, af, ag, agr = (acc * n_inv for acc in accs)
-        ag2 = ag.reshape(2, 4, Fp, ngl)
-        agx = ag2[:, :, :nfx].reshape(2, 4, ney, nex + 1, ngl)
-        agy = ag2[:, :, nfx:nfx + nfy].reshape(2, 4, ney + 1, nex, ngl)
-        agrad = agr[:, :E].reshape(4, ney, nex, ngl, ngl)
-    else:
-        vol, nod, af = (acc * n_inv for acc in accs)
-        agx = jnp.zeros((2, 4, ney, nex + 1, ngl), dtype)
-        agy = jnp.zeros((2, 4, ney + 1, nex, ngl), dtype)
-        agrad = jnp.zeros((4, ney, nex, ngl, ngl), dtype)
-    afx = af[:, :nfx].reshape(16, ney, nex + 1, nq)
-    afy = af[:, nfx:nfx + nfy].reshape(16, ney + 1, nex, nq)
-    vol = vol[:, :E].reshape(12, ney, nex, nq, nq)
-    nod = nod[:, :E].reshape(3, ney, nex, ngl, ngl)
-    qb = qbf[:, :E].reshape(4, ney, nex, ngl, ngl)
     return qb, _averages_view(static, vol, nod, afx, afy, agx, agy, agrad)

@@ -1,6 +1,6 @@
 """Face trace extraction, BC mirrors, halo exchange, and face scatter.
 
-TPU-native replacement of the reference's imapl/imapr pointer chasing, face
+Array-native replacement of the reference's imapl/imapr pointer chasing, face
 loops AND MPI face-halo exchange (src/mod_face.F90,
 src/create_normals_quad.F90:227-372, src/mod_layer_terms.F90:354-465,
 src/mod_barotropic_terms.F90:25-97, src/send_receive_bound.F90,
@@ -140,7 +140,7 @@ def extract_faces_stacked(q, bc: BCs, vec_pairs=()):
     channel stack (4 total), not one per field: the moral equivalent of the
     reference packing all variables of a face into one MPI message
     (src/send_receive_bound.F90 packs nvar*ngl values per face before a
-    single isend). On ICI this turns ~32 latency-bound collectives per
+    single isend). This turns ~32 latency-bound collectives per
     barotropic stage into 4.
 
     Returns stacked (xl, xr, yl, yr); x-traces (C, ..., ly, lx+1, m),
@@ -150,14 +150,6 @@ def extract_faces_stacked(q, bc: BCs, vec_pairs=()):
     west = q[..., :, :, :, 0]
     north = q[..., :, :, -1, :]
     south = q[..., :, :, 0, :]
-    return extract_faces_from_slabs(east, west, north, south, bc, vec_pairs)
-
-
-def extract_faces_from_slabs(east, west, north, south, bc: BCs, vec_pairs=()):
-    """extract_faces_stacked from precomputed edge slabs (C, ..., ly, lx, m).
-
-    Lets callers that hold fields in a flat element-major layout (the fused
-    Pallas path) build traces without relayouting the full field."""
     C = east.shape[0]
     dtype = east.dtype
 
@@ -204,47 +196,6 @@ def extract_faces_multi(q, bc: BCs, vec_pairs=()) -> list[FaceLR]:
     xl, xr, yl, yr = extract_faces_stacked(q, bc, vec_pairs)
     return [FaceLR(xl=xl[c], xr=xr[c], yl=yl[c], yr=yr[c])
             for c in range(q.shape[0])]
-
-
-def face_views_x(S, bc: BCs):
-    """Element-aligned edge-add views of x-face scatter values.
-
-    Returns (Sw, Se), each (..., ly, lx, m), such that
-    `scatter_face_x(rhs, S, bc)` == adding Se to each element's east edge and
-    Sw to its west edge. Lets a fused kernel apply face scatter without
-    element-coupled indexing (the sign/wall logic lives here).
-    """
-    Se = -S[..., :, 1:, :]
-    w0 = S[..., :, :1, :]
-    if not bc.x_periodic:
-        wfirst, _ = _edge_masks(bc.ax)
-        w0 = _sel(wfirst, -w0, w0)
-    Sw = jnp.concatenate([w0, S[..., :, 1:-1, :]], axis=-2)
-    return Sw, Se
-
-
-def face_views_y(S, bc: BCs):
-    """Element-aligned edge-add views of y-face scatter values (see
-    face_views_x). Returns (Ss, Sn), each (..., ly, lx, m)."""
-    Sn = -S[..., 1:, :, :]
-    s0 = S[..., :1, :, :]
-    if not bc.y_periodic:
-        sfirst, _ = _edge_masks(bc.ay)
-        s0 = _sel(sfirst, -s0, s0)
-    Ss = jnp.concatenate([s0, S[..., 1:-1, :, :]], axis=-3)
-    return Ss, Sn
-
-
-def wall_projection_masks(shape, bc: BCs, dtype):
-    """Multiplicative (E-shaped) masks equivalent to apply_wall_projection.
-
-    shape: (ly, lx, ngl, ngl). Returns (mask_u, mask_v) with 0.0 at nodes
-    where that momentum component is zeroed by the wall projection, 1.0
-    elsewhere. Device-varying under shard_map (edge-shard selects)."""
-    mu = jnp.ones(shape, dtype)
-    mv = jnp.ones(shape, dtype)
-    mu, mv = apply_wall_projection(mu, mv, bc)
-    return mu, mv
 
 
 def extract_faces(u, bc: BCs, v=None) -> tuple[FaceLR, FaceLR | None]:

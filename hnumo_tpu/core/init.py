@@ -22,6 +22,40 @@ from .types import FaceDirGeom, Pair, Precomputed, State
 
 GRAVITY_DEFAULT = 9.806
 
+# Where use_pallas="auto" runs the fused volume kernel (f32 on a GPU), from
+# the H100 measurements in docs/performance.md: it won end to end at p=4
+# from the reference's 25x25 double gyre (625 elements) up to 128x128, and
+# lost 10x at p=8. Smaller grids and other orders are unmeasured and keep
+# the XLA path.
+PALLAS_AUTO_MIN_ELEMENTS = 625
+PALLAS_AUTO_ORDERS = (4,)
+
+
+def resolve_pallas(setting: str, platform: str, dtype, n_elements: int,
+                   nop: int) -> tuple[bool, bool]:
+    """Config.use_pallas -> (use the fused volume kernel, interpret mode).
+
+    "on" runs the kernel in interpret mode on the CPU (tests) and compiled
+    on a GPU, where Triton's dot has no f64 accumulator; any other platform
+    has no kernel. "auto" turns it on only where it was measured to win."""
+    if setting == "off":
+        return False, False
+    if setting == "on":
+        if platform == "cpu":
+            return True, True
+        if platform != "gpu":
+            raise ValueError(
+                f"use_pallas='on': no fused kernel for platform {platform!r}")
+        if dtype != jnp.float32:
+            raise ValueError("use_pallas='on' on a GPU needs dtype float32")
+        return True, False
+    if setting != "auto":
+        raise ValueError(f"use_pallas must be 'auto', 'on' or 'off', "
+                         f"not {setting!r}")
+    return (platform == "gpu" and dtype == jnp.float32
+            and n_elements >= PALLAS_AUTO_MIN_ELEMENTS
+            and nop in PALLAS_AUTO_ORDERS), False
+
 
 @dataclasses.dataclass(frozen=True)
 class StaticConfig:
@@ -42,26 +76,11 @@ class StaticConfig:
     alpha_bot: float    # alpha(nlayers), for quadratic bottom drag
     Pstress: float      # wind-stress distribution depth scale (pressure)
     Pbstress: float
-    use_pallas: bool = False      # fused TPU kernels (ops.pallas_btp)
+    use_pallas: bool = False      # fused volume kernel (ops.pallas_btp)
     pallas_interpret: bool = False  # interpret mode (CPU testing)
-    fused_tail_on: bool = False   # opt-in whole-stage fused tail (config)
     compat_reference_stress: bool = False  # verbatim reference stress slip
-    uniform_geom: bool = False    # affine brick mesh with constant metrics
-    #                               (a geometry FACT; enables the folded-
-    #                               operator kernels when requested)
-    uni_volume_on: bool = False   # opt-in folded uniform-geometry volume
-    #                               kernel (measured slower than the general
-    #                               kernel at 32-256 on v5e; performance.md)
     batched_faces_on: bool = False  # batch both face directions on one flat
     #                                 axis in the barotropic stage (config)
-    mega_on: bool = False         # whole-solve Pallas megakernel
-    #                               (ops.pallas_mega): the entire barotropic
-    #                               sub-cycling as ONE kernel per solve
-    mega_bf16: bool = False       # single-pass bf16 MXU inside the mega
-    #                               kernel (Config.mega_precision="bf16")
-    periodic: bool = False        # any periodic boundary (mega gate)
-    flat_bottom: bool = False     # grad(z_bot) == 0 everywhere (drops the
-    #                               bathymetry-gradient source channels)
     debug_checks: bool = False    # enable jax.debug_nans-style NaN checking
     scan_stages: bool = True      # lax.scan over RK stages (one compiled
     #                               stage body) instead of Python-unrolling
@@ -80,45 +99,8 @@ class StaticConfig:
         """Flat-axis batched barotropic face path (btp._btp_faces_visc_flat).
 
         Requires the nodal LDG family when viscosity is on (the quad family
-        keeps its per-direction pipeline) and is superseded by the fused
-        tail's own face kernel."""
-        return (self.batched_faces_on and not self.fused_tail
-                and (not self.use_visc or self.method_visc != 1))
-
-    @property
-    def mega(self) -> bool:
-        """Whole-solve megakernel (ops.pallas_mega.barotropic_solve_mega).
-
-        Envelope: Pallas (f32 TPU), uniform brick geometry, non-periodic
-        walls, SSP integrators (lsrk carries a dq register with a
-        different update), nodal LDG family or no viscosity, single
-        device (Model gates it off under a mesh — the in-kernel roll
-        exchange has no ppermute)."""
-        return (self.mega_on and self.use_pallas and self.uniform_geom
-                and not self.periodic and self.ti_method_btp == "rk35"
-                and (not self.use_visc or self.method_visc != 1))
-
-    @property
-    def uni_volume(self) -> bool:
-        """Folded uniform-geometry volume kernel (btp_volume_pallas_uni).
-
-        OPT-IN via Config.uni_volume="on": the folded operators fuse the
-        metric terms into the Kronecker matrices but lose to the general
-        kernel on v5e at every measured size (34.5 vs 23.8 ms/step at
-        32x32 — docs/performance.md A/B table)."""
-        return self.uni_volume_on and self.use_pallas and self.uniform_geom
-
-    @property
-    def fused_tail(self) -> bool:
-        """Whole-stage fused Pallas path (ops.pallas_btp_tail): volume +
-        faces + viscosity + SSPRK update as three kernels. Requires the
-        uniform-geometry operators, the SSP combine (lsrk carries a dq
-        register with a different update), and the nodal viscosity family.
-        OPT-IN via Config.fused_tail="on": measured slower than the default
-        (Pallas volume + XLA faces) at production sizes on v5e — see
-        docs/performance.md A/B table."""
-        return (self.fused_tail_on and self.use_pallas and self.uniform_geom
-                and self.ti_method_btp != "lsrk"
+        keeps its per-direction pipeline)."""
+        return (self.batched_faces_on
                 and (not self.use_visc or self.method_visc != 1))
 
 
@@ -442,8 +424,7 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype, zbot_ext=None) -> tupl
         )
 
     # ---- static RHS vectors (f64, host NumPy mirrors of the jnp kernels;
-    # NumPy so f32 runs never need jax_enable_x64 — Mosaic TPU kernels are
-    # incompatible with global x64) -------------------------------------
+    # NumPy so f32 runs never need jax_enable_x64) -----------------------
     # Exactly the terms the δ-form kernels drop (docs/float32.md): the
     # reference-state H fluxes + static sources. For a well-balanced case
     # these sum to ~1e-12; for an off-equilibrium IC they are the small
@@ -564,36 +545,10 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype, zbot_ext=None) -> tupl
         t=jnp.asarray(cfg.t_initial, dtype=dtype), ok=jnp.asarray(True),
     )
 
-    # fused Pallas kernels: default on for f32 TPU runs ("auto"); f64 keeps
-    # the XLA path (Mosaic TPU has no f64); off-TPU backends use interpret
-    # mode only when explicitly requested ("on")
     import jax as _jax
-    on_tpu = _jax.default_backend() == "tpu"
-    if cfg.use_pallas == "on":
-        use_pallas, interp = True, not on_tpu
-    elif cfg.use_pallas == "auto":
-        # below ~256 elements the per-stage pallas_call overhead exceeds the
-        # fusion win (measured on v5e: 8x8 grid regresses, 32x32 gains ~2x)
-        use_pallas = (dtype == jnp.float32 and on_tpu
-                      and cfg.nelx * cfg.nely >= 256)
-        interp = False
-    else:
-        use_pallas, interp = False, False
-
-    # geometry/physics structure flags for the folded-operator fast path:
-    # uniform_geom = every element affine with identical diagonal metrics
-    # (true for all brick grids); flat_bottom = no bathymetry gradients.
-    _mscale = max(np.abs(geom.ksiq_x).max(), np.abs(geom.etaq_y).max())
-    _wflat = geom.wjac.reshape(-1, geom.wjac.shape[-2] * geom.wjac.shape[-1])
-    uniform_geom = bool(
-        np.abs(geom.ksiq_y).max() <= 1e-12 * _mscale
-        and np.abs(geom.etaq_x).max() <= 1e-12 * _mscale
-        and np.ptp(geom.ksiq_x) <= 1e-12 * _mscale
-        and np.ptp(geom.etaq_y) <= 1e-12 * _mscale
-        and np.ptp(_wflat, axis=0).max() <= 1e-12 * np.abs(_wflat).max())
-    # numerical differentiation of a constant zbot leaves ~1e-16*|zbot|*|D|
-    # noise; slopes below 1e-13 (dimensionless dz/dx) are physically flat
-    flat_bottom = bool(max(np.abs(gzx).max(), np.abs(gzy).max()) <= 1e-13)
+    use_pallas, interp = resolve_pallas(
+        cfg.use_pallas, _jax.default_backend(), dtype, cfg.nelx * cfg.nely,
+        cfg.nopx)
 
     static = StaticConfig(
         nlayers=L, kstages=cfg.kstages, n_btp=cfg.n_btp,
@@ -606,22 +561,10 @@ def build_precomputed(cfg: Config, geom: Geometry, dtype, zbot_ext=None) -> tupl
         Pstress=float((grav / ini.alpha[0]) * 50.0),
         Pbstress=float((grav / ini.alpha[L - 1]) * 10.0),
         use_pallas=use_pallas, pallas_interpret=interp,
-        fused_tail_on=(cfg.fused_tail == "on"),
-        uni_volume_on=(cfg.uni_volume == "on"),
         batched_faces_on=(cfg.batched_faces == "on"
                           or (cfg.batched_faces == "auto"
                               and cfg.nelx * cfg.nely <= 8192)),
-        # mega's side lane blocks hold ngl<=NGL_B=8 / nq<=NQ_B=16 values
-        # (ops/pallas_mega.py), i.e. nop <= 7; the whole-grid VMEM residency
-        # fits ~1024 elements on v5e (128 MB VMEM; 64x64 measured 372 MB),
-        # so "auto" gates by element count while "on" trusts the user
-        mega_on=(cfg.mega in ("on", "auto") and cfg.nopx <= 7
-                 and (cfg.mega == "on"
-                      or cfg.nelx * cfg.nely <= 1024)),
-        mega_bf16=(cfg.mega_precision == "bf16"),
-        periodic=(3 in cfg.x_boundary or 3 in cfg.y_boundary),
         compat_reference_stress=cfg.compat_reference_stress,
-        uniform_geom=uniform_geom, flat_bottom=flat_bottom,
         debug_checks=cfg.debug_checks,
         scan_stages=(cfg.scan_stages == "on"
                      or (cfg.scan_stages == "auto" and not use_pallas)),

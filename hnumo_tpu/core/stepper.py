@@ -71,15 +71,9 @@ def _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces):
     return q_df, ok
 
 
-def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
-              vol_ops=None, mega_ops=None) -> State:
-    """One baroclinic time step (reference src/ti_rk_bcl.F90:9-87).
-
-    `vol_ops`: optional precomputed Pallas volume operator tables
-    (btp.build_vol_operators) — single-device callers hoist them out of
-    the step; None rebuilds them in-step (shard_map path). `mega_ops`:
-    optional ops.pallas_mega.MegaStatic bundle enabling the whole-solve
-    megakernel when static.mega."""
+def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs,
+              state: State) -> State:
+    """One baroclinic time step (reference src/ti_rk_bcl.F90:9-87)."""
     q_df, qb_df, qprime_df = state.q_df, state.qb_df, state.qprime_df
     zq = jnp.zeros_like(interp_n2q(g, qprime_df[0]))
 
@@ -90,8 +84,7 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
     dpprime_visc_q = interp_n2q(g, dpprime_visc) if static.method_visc == 1 else zq
     coup = btp_bcl_coeffs(static, P, g, bc, qprime_df, qprime_faces,
                           dpprime_visc, dpprime_visc_q)
-    qbp_df, avg = barotropic_solve(static, P, g, bc, coup, qb_df, qprime_df,
-                                   vol_ops=vol_ops, mega_ops=mega_ops)
+    qbp_df, avg = barotropic_solve(static, P, g, bc, coup, qb_df, qprime_df)
 
     # momentum_mass (predictor): mass + momentum + recombination
     q_df2, ok1 = _thickness_update(static, P, g, bc, avg, q_df, qprime_df, qprime_faces)
@@ -110,8 +103,7 @@ def ti_rk_bcl(static, P: Precomputed, g: DeviceGeom, bc: BCs, state: State,
     coup = btp_bcl_coeffs(static, P, g, bc, qprime_half, qprime_faces_half,
                           dpprime_visc, dpprime_visc_q)
     qb_new, avg = barotropic_solve(static, P, g, bc, coup, qb_df,
-                                   qprime_half, vol_ops=vol_ops,
-                                   mega_ops=mega_ops)
+                                   qprime_half)
 
     # thickness (corrector) with averaged primes
     q_df, ok2 = _thickness_update(static, P, g, bc, avg, q_df,

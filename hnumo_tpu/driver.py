@@ -108,23 +108,48 @@ class Runner:
         return state, s
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def select_platform(cpu: bool) -> None:
+    """Run on the CPU when asked; otherwise insist on a GPU.
+
+    Entry points call this before any JAX work, so a machine whose GPU is
+    missing fails loudly instead of quietly running on the CPU."""
+    if cpu:
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        jax.config.update("jax_platforms", "cpu")
+        return
+    platform = jax.devices()[0].platform
+    if platform != "gpu":
+        raise RuntimeError(f"no GPU found (JAX platform is {platform!r}); "
+                           "pass --cpu to run on the CPU")
+
+
 def main(argv=None):
     import argparse
 
     p = argparse.ArgumentParser(prog="hnumo_tpu",
-                                description="TPU-native multilayer SWE DG solver")
+                                description="Multilayer SWE DG solver")
     p.add_argument("input", help="numo3d.in namelist file")
     p.add_argument("--outdir", default=".")
     p.add_argument("--mesh", default=None,
                    help="PYxPX device mesh, e.g. 2x4 (default: single device)")
     p.add_argument("--f32", action="store_true", help="run in float32")
-    p.add_argument("--cpu", action="store_true")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (default: fail unless a GPU is found)")
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
 
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        jax.config.update("jax_platforms", "cpu")
+    select_platform(args.cpu)
 
     from . import compile_cache
     compile_cache.enable()

@@ -7,7 +7,7 @@ structured edge-slab face path when a mesh has extraordinary vertices
 Reference counterpart: the face builder of create_normals_quad
 (src/create_normals_quad.F90:227 builds imapl_q/imapr_q per-face node
 index maps) and the p4est external-connectivity door
-(src/p4est.c:1030-1187). The TPU design differs structurally: element
+(src/p4est.c:1030-1187). This design differs structurally: element
 storage stays DENSE element-major (C, E, ngl, ngl) — DG shares no nodes
 across elements, so volume kernels need no index tables — and only the
 face pipeline uses precomputed flat int32 index maps:

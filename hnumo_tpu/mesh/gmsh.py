@@ -6,7 +6,7 @@ read_bathy :178-207 reads a `$Bathy` section of per-linear-node depths;
 high-order LGL node population is done a-posteriori from the bilinear
 quads, src/read_gmsh.F90:249-330).
 
-TPU-native difference: the solver's compute path is a structured
+Design difference: the solver's compute path is a structured
 (nely, nelx) element grid (dense batched tensors, no index indirection —
 see hnumo_tpu.mesh.grid). External meshes are therefore accepted when they
 are *logically structured* (a quad grid under any smooth deformation —
@@ -233,7 +233,7 @@ def infer_structured_layout(quads: np.ndarray, native: bool | None = None):
                     raise ValueError(
                         "mesh is not logically structured (inconsistent "
                         f"layout at element {e2}); irregular topology is "
-                        "not supported by the structured TPU compute path")
+                        "not supported by the structured compute path")
                 continue
             rot[e2] = r2
             pos[e2] = p2

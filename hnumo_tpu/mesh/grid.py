@@ -1,4 +1,4 @@
-"""Structured 2D DG mesh + geometry tables, element-major TPU layout.
+"""Structured 2D DG mesh + geometry tables, element-major layout.
 
 Replaces the reference's p4est brick + metric machinery
 (src/mod_p4est.F90:216-415, src/metrics_quad.F90:8-126,
@@ -9,7 +9,7 @@ covers them exactly; the geometry arrays are kept fully general
 (per-element, per-point metrics) so curvilinear/gmsh meshes can reuse the
 same compute path later.
 
-Layout convention (TPU-first, no indirection):
+Layout convention (dense arrays, no indirection):
   nodal fields   (..., nely, nelx, ngl_j, ngl_i)   j=y-node, i=x-node
   quad fields    (..., nely, nelx, nq_j, nq_i)
   x-face fields  (..., nely, nelx+1, n)            n along y

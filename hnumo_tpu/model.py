@@ -29,16 +29,17 @@ class Model:
         """
         self.cfg = cfg
         dtype = jnp.float64 if cfg.dtype == "float64" else jnp.float32
-        # f64 validation runs need global x64. f32 runs do NOT enable it:
+        # f64 validation runs need global x64. f32 runs do not enable it:
         # the δ-formulation's static reference vectors are assembled in f64
-        # with host NumPy (core/init.py), and global x64 breaks Mosaic TPU
-        # kernel lowering (i64 index maps).
+        # with host NumPy (core/init.py), so an f32 run never needs 64-bit
+        # device types.
         if dtype == jnp.float64 and not jax.config.jax_enable_x64:
             jax.config.update("jax_enable_x64", True)
-        # TPU MXU defaults f32 dots to one-pass bf16 — far below f32 accuracy
-        # and fatal for the pressure fields (pb ~ 4e5 Pa with ~1e2 signals).
-        # The DG operators are tiny matrices; bandwidth, not MXU throughput,
-        # bounds them, so full-f32 (bf16x3/x6) passes are nearly free.
+        # A GPU may run f32 dots in TF32 (about three decimal digits), which
+        # is fatal for the pressure fields (pb ~ 4e5 Pa with ~1e2 signals;
+        # docs/float32.md). The DG operators are tiny matrices; bandwidth,
+        # not tensor-core throughput, bounds them, so full-f32 products cost
+        # little.
         if jax.config.jax_default_matmul_precision is None:
             jax.config.update("jax_default_matmul_precision", "highest")
         self.dtype = dtype
@@ -86,30 +87,13 @@ class Model:
             # P and g are jit ARGUMENTS, not closure captures: captured
             # device arrays are baked into the HLO as literal constants, so
             # the compile payload (and compile time) grows with the grid —
-            # ~100 MB of geometry tables at 256x256 (and it trips payload
-            # limits on remote-compile backends). As parameters they stay
-            # runtime inputs with O(1) program size. The state-independent
-            # Pallas operator tables are likewise built ONCE here rather
-            # than per step.
-            from .core.btp import build_vol_operators
-
-            self._vol_ops = jax.jit(
-                functools.partial(build_vol_operators, static))(self.g, self.P)
-            self._mega_ops = None
-            if static.mega:
-                from .ops.pallas_mega import build_mega_static
-
-                self._mega_ops = build_mega_static(static, self.g, self.P,
-                                                   self.bc)
-
+            # ~100 MB of geometry tables at 256x256. As parameters they stay
+            # runtime inputs with O(1) program size.
             @functools.partial(jax.jit, donate_argnums=(0,))
-            def _step_args(state: State, Pre, geo, vol_ops, mega_ops) -> State:
-                return ti_rk_bcl(static, Pre, geo, bcs, state,
-                                 vol_ops=vol_ops, mega_ops=mega_ops)
+            def _step_args(state: State, Pre, geo) -> State:
+                return ti_rk_bcl(static, Pre, geo, bcs, state)
 
-            self._step = lambda state: _step_args(state, self.P, self.g,
-                                                  self._vol_ops,
-                                                  self._mega_ops)
+            self._step = lambda state: _step_args(state, self.P, self.g)
         else:
             from jax import shard_map
 
@@ -125,12 +109,6 @@ class Model:
             self._shardings = state_shardings(mesh)
 
             static = self.static
-            if static.mega_on:
-                # the megakernel's in-kernel roll exchange has no ppermute;
-                # sharded runs keep the default path
-                import dataclasses as _dc
-                static = _dc.replace(static, mega_on=False)
-                self.static = static
             if cfg.batched_faces == "auto":
                 # under shard_map the launch-latency regime is set by the
                 # PER-DEVICE block, not the global grid — re-resolve "auto"
@@ -154,12 +132,11 @@ class Model:
             self.P = jax.device_put(self.P, jax.tree.map(
                 lambda s: NamedSharding(mesh, s), pspec, is_leaf=is_spec))
 
-            # check_vma stays ON for compiled (TPU) runs — pallas outputs
+            # check_vma stays ON for the compiled kernel — its outputs
             # declare their varying axes (ops.pallas_btp.sds). Interpret-mode
-            # pallas (CPU tests / dryrun) hits a JAX-internal limitation: the
-            # HLO interpreter's block dynamic_slice mixes varying operands
-            # with replicated loop indices and fails the vma check, so the
-            # check is disabled for that mode only.
+            # Pallas (CPU tests) mixes varying operands with replicated loop
+            # indices inside the interpreter and fails the vma check, so the
+            # check is off for that mode only.
             check_vma = not (static.use_pallas and static.pallas_interpret)
             step_local = shard_map(
                 lambda state, Pre, geo: ti_rk_bcl(static, Pre, geo, bcs, state),

@@ -1,10 +1,9 @@
 """Core DG tensor-product operators (jitted compute path).
 
-TPU-native replacement of the reference's per-quad-point gather/scatter
+Array-native replacement of the reference's per-quad-point gather/scatter
 tables (src/Tensor_product.F90:1-128) and MXM kernels (src/mxm.F90): every
 operation is a pair of small dense matmuls batched over all elements (and
-layers/variables), which XLA maps onto the MXU with the element batch in
-the leading dimensions.
+layers/variables), with the element batch in the leading dimensions.
 
 Field layouts (see hnumo_tpu.mesh.grid):
   nodal (..., nely, nelx, ngl_j, ngl_i), quad (..., nely, nelx, nq_j, nq_i).

@@ -1,26 +1,36 @@
-"""Pallas TPU kernel: fused barotropic volume RHS + average accumulation.
+"""Fused barotropic volume RHS + average accumulation (Pallas, Triton route).
 
 The innermost hot op of the model: `btp_volume_rhs` + the volume/nodal
 average accumulators run N_btp*kstages times per barotropic solve, twice
 per baroclinic dt (reference create_rhs_btp_volume_qdf,
 src/mod_rhs_btp.F90:102-209, plus the accumulator updates of
-src/mod_rk_mlswe.F90:84-98). The XLA path materializes ~20 quad-sized
-intermediates in HBM per stage; this kernel keeps the whole per-element
-pipeline (node->quad interp, friction/sources, flux tensors, weak-form
-scatter, 12 quad + 3 nodal accumulator adds) VMEM-resident, tiled over
-elements, with the accumulators updated in place via input_output_aliases.
+src/mod_rk_mlswe.F90:84-98). The XLA path writes ~20 quad-sized
+intermediates to device memory per stage and launches one kernel per
+fusion; this kernel keeps the whole per-element pipeline (node->quad
+interp, friction/sources, flux tensors, weak-form scatter, 12 quad + 3
+nodal accumulator adds) in registers, one program per tile of elements,
+with the accumulators updated in place via input_output_aliases.
 
-Element-flattened layouts: nodal (C, E, npts) with npts = ngl*ngl, quad
-(C, E, nqq) with nqq = nq*nq. The 2D tensor-product operators become
-single matmuls with Kronecker-product matrices:
+Layouts are the model's own structured arrays viewed element-flat, which is
+a free reshape: nodal (C*E, npts) with npts = ngl*ngl, quad (C*E, nqq) with
+nqq = nq*nq, row c*E + e. The 2D tensor-product operators become single
+matmuls with Kronecker-product matrices:
   interp     u_q = u_n @ K,           K[n,Q]  = psi_j(J) psi_i(I)
   scatter    r_n = a_ksi @ DkT + a_eta @ DeT + s @ KT
 where DkT[Q,n] = psi_j(J) dpsi_i(I), DeT[Q,n] = dpsi_j(J) psi_i(I) — the
-flattened form of ops.dg.scatter_volume. MXU shapes (T,25)@(25,81).
+flattened form of ops.dg.scatter_volume. Triton wants power-of-two tiles,
+so the operators are zero-padded (p=4: npts 25->32, nqq 81->128) and every
+load and store is masked on the element tail and the padded columns. All
+work at a quad point is local to it, so a program walks the quad points in
+chunks and sums the chunks' scatter products. A chunk's operator block is
+capped at OP_CHUNK_ELEMS values (32 KB in f32): one chunk at p=4, five at
+p=8, whose unchunked operators would not fit in a block's 227 KB of shared
+memory.
 
-f64 is not supported by Mosaic TPU: the kernel is used for f32 TPU runs
-(the production mode); f64 validation runs keep the XLA path. CPU tests
-run the kernel in interpret mode.
+Matmuls run at HIGHEST precision (IEEE f32 on the GPU, never TF32: a
+three-digit product is the failure documented in docs/float32.md). Triton's
+dot has no f64 accumulator, so on the GPU the kernel is f32 only; CPU tests
+run it in interpret mode in both precisions.
 """
 from __future__ import annotations
 
@@ -29,39 +39,65 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+# elements per program (Triton dots need >= 16 rows) and warps: on the H100
+# 16 x 8 beat 16 x 4, 16 x 16 and 32 x 8 (docs/performance.md)
+TILE = 16
+NUM_WARPS = 8
+OP_CHUNK_ELEMS = 8192  # values in one (NP, chunk width) operator block
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(4, (n - 1).bit_length())
+
+
+def _quad_chunks(npts: int, nqq: int) -> tuple[int, int]:
+    """(chunk width, number of chunks) covering nqq quad points."""
+    width = min(_pow2(nqq), max(16, OP_CHUNK_ELEMS // _pow2(npts)))
+    return width, -(-nqq // width)
 
 
 class BtpVolOperators(NamedTuple):
-    """Static flattened tensor-product operator matrices + element tables."""
+    """Zero-padded Kronecker operator matrices (NP = pow2(npts), NQ = the
+    quad chunks' total width)."""
 
-    K: jnp.ndarray      # (npts, nqq) node->quad interp
-    KT: jnp.ndarray     # (nqq, npts) transpose (quad->node scatter, Fs term)
-    DkT: jnp.ndarray    # (nqq, npts) d/dksi-weighted scatter
-    DeT: jnp.ndarray    # (nqq, npts)
-    met: jnp.ndarray    # (5, E, nqq): ksiq_x, ksiq_y, etaq_x, etaq_y, wjac
-    ptab: jnp.ndarray   # (8, E, nqq): coriolis, tau_u, tau_v, gzx, gzy,
-    #                     one_over_pbprime, dpp_ref_q[-1], H_bcl_ref
-    pbp_df: jnp.ndarray  # (E, npts): 1/pbprime_df (nodal, for mu2_df acc)
+    K: jnp.ndarray      # (NP, NQ) node->quad interp
+    KT: jnp.ndarray     # (NQ, NP) quad->node scatter (Fs term)
+    DkT: jnp.ndarray    # (NQ, NP) d/dksi-weighted scatter
+    DeT: jnp.ndarray    # (NQ, NP)
+
+
+def operators(psiq, dpsiq) -> BtpVolOperators:
+    """Padded operator matrices from the 1D basis tables (ngl, nq)."""
+    ngl, nq = psiq.shape
+    npts, nqq = ngl * ngl, nq * nq
+    width, nchunks = _quad_chunks(npts, nqq)
+    NP, NQ = _pow2(npts), width * nchunks
+    K = jnp.einsum("jJ,iI->jiJI", psiq, psiq).reshape(npts, nqq)
+    Dk = jnp.einsum("jJ,iI->jiJI", psiq, dpsiq).reshape(npts, nqq)
+    De = jnp.einsum("jJ,iI->jiJI", dpsiq, psiq).reshape(npts, nqq)
+
+    def pad(m):
+        return jnp.pad(m, ((0, NP - npts), (0, NQ - nqq)))
+
+    return BtpVolOperators(K=pad(K), KT=pad(K).T, DkT=pad(Dk).T,
+                           DeT=pad(De).T)
 
 
 def eflat(a):
-    """(..., ney, nex, m, m) -> (..., E, m*m): element-flatten (free reshape).
-
-    Works on the LOCAL block under shard_map (everything element-local)."""
-    return a.reshape(a.shape[:-4] + (a.shape[-4] * a.shape[-3],
-                                     a.shape[-2] * a.shape[-1]))
+    """(..., ney, nex, m, m) -> (prod(...)*E, m*m): channel-major element
+    rows (a free reshape). Works on the LOCAL block under shard_map."""
+    return a.reshape(-1, a.shape[-2] * a.shape[-1])
 
 
 def sds(shape, dtype, *operands):
     """ShapeDtypeStruct for pallas_call outputs, carrying the union of the
     operands' varying-manual-axes (vma). Under jax.shard_map with
-    check_vma=True (the default), pallas_call outputs must declare which
-    mesh axes they vary over or tracing fails; a kernel output varies over
-    exactly the axes any of its inputs varies over (the kernel is
-    per-shard-local)."""
+    check_vma=True, pallas_call outputs must declare which mesh axes they
+    vary over; a kernel output varies over exactly the axes any of its
+    inputs varies over (the kernel is per-shard-local)."""
     vma = frozenset()
     for a in operands:
         vma = vma | getattr(jax.typeof(a), "vma", frozenset())
@@ -74,9 +110,9 @@ def align_vma(*arrays):
     """Promote every array to the union of the group's varying-manual-axes.
 
     Under jax.shard_map (check_vma=True) pallas_call operands must agree on
-    which mesh axes they vary over; the static operator tables are
-    replicated while the state is device-varying, so pcast the tables up to
-    match. Outside shard_map this is the identity."""
+    which mesh axes they vary over; the operator matrices are replicated
+    while the state is device-varying, so pcast them up to match. Outside
+    shard_map this is the identity."""
     vma = frozenset()
     for a in arrays:
         vma = vma | getattr(jax.typeof(a), "vma", frozenset())
@@ -90,492 +126,169 @@ def align_vma(*arrays):
     return tuple(out)
 
 
-def operators_from_tables(g, P) -> BtpVolOperators:
-    """Build the flattened operator tables from device geometry inside jit.
-
-    Cost: a handful of reshapes/stacks per barotropic solve (amortized over
-    N_btp*kstages stage evaluations); keeps the tables shard-local so no
-    extra sharding plumbing is needed.
-    """
-    K = jnp.einsum("jJ,iI->jiJI", g.psiq, g.psiq).reshape(
-        g.psiq.shape[0]**2, g.psiq.shape[1]**2)
-    Dk = jnp.einsum("jJ,iI->jiJI", g.psiq, g.dpsiq).reshape(K.shape)
-    De = jnp.einsum("jJ,iI->jiJI", g.dpsiq, g.psiq).reshape(K.shape)
-    met = jnp.stack([eflat(g.ksiq_x), eflat(g.ksiq_y),
-                     eflat(g.etaq_x), eflat(g.etaq_y), eflat(g.wjac)])
-    ptab = jnp.stack([
-        eflat(P.coriolis_quad),
-        eflat(P.tau_wind[0]), eflat(P.tau_wind[1]),
-        eflat(P.grad_zbot_quad[0]), eflat(P.grad_zbot_quad[1]),
-        eflat(P.one_over_pbprime),
-        eflat(P.dpp_ref_q[-1]), eflat(P.H_bcl_ref)])
-    pbp_df = eflat(P.one_over_pbprime_df)
-    return BtpVolOperators(K=K, KT=K.T, DkT=Dk.T, DeT=De.T,
-                           met=met, ptab=ptab, pbp_df=pbp_df)
-
-
-def _kernel(qb_ref, qpl_ref, met_ref, ptab_ref, coup_ref,
-            K_ref, KT_ref, DkT_ref, DeT_ref, pbp_ref,
-            accv_in, accn_in,
+def _kernel(qb_ref, qpl_ref, kx_ref, ky_ref, ex_ref, ey_ref, wj_ref,
+            cor_ref, tau_ref, gz_ref, opbp_ref, dppref_ref, href_ref,
+            quu_ref, quv_ref, qvv_ref, dhb_ref, pbp_ref,
+            K_ref, KT_ref, DkT_ref, DeT_ref, accv_in, accn_in,
             rhs_ref, accv_ref, accn_ref,
-            *, grav, botfr, cd, alpha_bot):
-    # operator blocks carry a leading grid-replicated dim (see the
-    # grid-invariant-operand note in btp_volume_pallas)
-    K, KT, DkT, DeT = K_ref[0], KT_ref[0], DkT_ref[0], DeT_ref[0]
+            *, E, npts, nqq, T, lref, grav, botfr, cd, alpha_bot):
+    NP = K_ref.shape[0]
+    QW, nchunks = _quad_chunks(npts, nqq)
+    e = pl.program_id(0) * T + jnp.arange(T, dtype=jnp.int32)
+    emask = e < E
+    cn = jnp.arange(NP, dtype=jnp.int32)
+    mn = emask[:, None] & (cn < npts)[None, :]
+
+    def ldn(ref, c=0):
+        return plgpu.load(ref.at[(c * E + e)[:, None], cn[None, :]],
+                          mask=mn, other=0.0)
+
+    def stn(ref, c, v):
+        plgpu.store(ref.at[(c * E + e)[:, None], cn[None, :]], v, mask=mn)
+
+    hi = jax.lax.Precision.HIGHEST
     pet = qb_ref.dtype
 
-    hi = jax.lax.Precision.HIGHEST  # full-f32 MXU passes (model.py note)
+    def dot(a, b):
+        return jnp.dot(a, b, precision=hi, preferred_element_type=pet)
 
-    def n2q(u):
-        return jnp.dot(u, K, preferred_element_type=pet, precision=hi)
-
-    qb = qb_ref[:]                        # (4, T, npts)
-    dp, dpp, udp, vdp = (n2q(qb[c]) for c in range(4))
-    qpl = qpl_ref[:]                      # (3, T, nqq) quad, precomputed
-    ppq, up, vp = qpl[0], qpl[1], qpl[2]
-
-    cor = ptab_ref[0]
-    tau_u, tau_v = ptab_ref[1], ptab_ref[2]
-    gzx, gzy = ptab_ref[3], ptab_ref[4]
-    opbp = ptab_ref[5]
-    pp = ptab_ref[6] + ppq                # full bottom-layer dp'
-    Href = ptab_ref[7]
-
-    inv_dp = 1.0 / dp
-    ub = udp * inv_dp
-    vb = vdp * inv_dp
-
-    if botfr == 1:
-        spd = (cd / grav) * pp
-        tb_u = spd * (up + ub)
-        tb_v = spd * (vp + vb)
-    elif botfr == 2:
-        ubot, vbot = up + ub, vp + vb
-        spd = (cd / alpha_bot) * jnp.sqrt(ubot * ubot + vbot * vbot)
-        tb_u = spd * ubot
-        tb_v = spd * vbot
-    else:
-        tb_u = jnp.zeros_like(dp)
-        tb_v = jnp.zeros_like(dp)
-
-    sc_x = cor * vdp + grav * (tau_u - tb_u) - grav * dpp * gzx
-    sc_y = -cor * udp + grav * (tau_v - tb_v) - grav * dpp * gzy
-
-    Quu, Quv, Qvv, dHbcl = (coup_ref[c] for c in range(4))
-    mu = dpp * opbp
-    mu2 = mu * (2.0 + mu)
-    ope = 1.0 + mu
-    dHq = dHbcl + mu2 * (Href + dHbcl)
-    qu = ub * udp + ope * Quu
-    quv = ub * vdp + ope * Quv
-    qv = vb * vdp + ope * Qvv
-
-    kx, ky, ex_, ey_, wj = (met_ref[c] for c in range(5))
-
-    def scatter(Fx, Fy, Fs):
-        a_ksi = wj * (Fx * kx + Fy * ky)
-        a_eta = wj * (Fx * ex_ + Fy * ey_)
-        r = jnp.dot(a_ksi, DkT, preferred_element_type=pet, precision=hi)
-        r += jnp.dot(a_eta, DeT, preferred_element_type=pet, precision=hi)
-        if Fs is not None:
-            r += jnp.dot(wj * Fs, KT, preferred_element_type=pet, precision=hi)
-        return r
-
-    rhs_ref[0] = scatter(udp, vdp, None)
-    rhs_ref[1] = scatter(dHq + qu, quv, sc_x)
-    rhs_ref[2] = scatter(quv, dHq + qv, sc_y)
-
-    # volume averages (reference src/mod_rhs_btp.F90:183-192)
-    accv = accv_in[:]
-    inc = jnp.stack([dHq, qu, qv, quv, mu, mu2, ub, vb, udp, vdp, tb_u, tb_v])
-    accv_ref[:] = accv + inc
+    qb0 = jnp.where(mn, ldn(qb_ref, 0), 1.0)
+    qb1, qb2, qb3 = ldn(qb_ref, 1), ldn(qb_ref, 2), ldn(qb_ref, 3)
 
     # nodal averages, computed from the PRE-stage qb (reference :90-92)
-    t_df = qb[1] * pbp_ref[:]
-    inv_pb = 1.0 / qb[0]
-    incn = jnp.stack([t_df * (2.0 + t_df), qb[2] * inv_pb, qb[3] * inv_pb])
-    accn_ref[:] = accn_in[:] + incn
+    t_df = qb1 * ldn(pbp_ref)
+    inv_pb = 1.0 / qb0
+    for c, v in enumerate((t_df * (2.0 + t_df), qb2 * inv_pb, qb3 * inv_pb)):
+        stn(accn_ref, c, ldn(accn_in, c) + v)   # accn_in aliases accn_ref
 
+    rhs = [jnp.zeros((T, NP), pet) for _ in range(3)]
+    for ch in range(nchunks):
+        cq = ch * QW + jnp.arange(QW, dtype=jnp.int32)
+        mq = emask[:, None] & (cq < nqq)[None, :]
+        cols = pl.ds(ch * QW, QW)
 
-def _pick_tile(E: int, cap: int = 128) -> int:
-    """Largest SUBLANE-ALIGNED divisor of E that is <= cap.
+        def ldq(ref, c=0, cq=cq, mq=mq):
+            return plgpu.load(ref.at[(c * E + e)[:, None], cq[None, :]],
+                              mask=mq, other=0.0)
 
-    Mosaic requires the second-to-last block dim to be a multiple of 8 or
-    the whole array dim; an unaligned tile (e.g. 125 for the reference's
-    own 25x25 = 625-element grid) fails to lower. Callers that can pad go
-    through pad_elements when this degenerates."""
-    best = 1
-    for t in range(1, min(E, cap) + 1):
-        if E % t == 0 and (t % 8 == 0 or t == E):
-            best = t
-    return best
+        def acc_q(c, v, cq=cq, mq=mq):   # accv_in aliases accv_ref
+            idx = ((c * E + e)[:, None], cq[None, :])
+            plgpu.store(accv_ref.at[idx],
+                        plgpu.load(accv_in.at[idx], mask=mq, other=0.0) + v,
+                        mask=mq)
 
+        K = K_ref[:, cols]
+        dp = jnp.where(mq, dot(qb0, K), 1.0)
+        dpp, udp, vdp = dot(qb1, K), dot(qb2, K), dot(qb3, K)
+        ub = udp / dp
+        vb = vdp / dp
+        acc_q(6, ub)
+        acc_q(7, vb)
+        acc_q(8, udp)
+        acc_q(9, vdp)
 
-# ---------------------------------------------------------------------------
-# v2 kernel: uniform (affine, constant-metric) geometry fast path
-# ---------------------------------------------------------------------------
-#
-# For brick grids (every production benchmark config, and the reference's own
-# CI cases) the metric terms are constant: ksiq_y = etaq_x = 0 and ksiq_x,
-# etaq_y, wjac identical in every element. That lets the quadrature weights
-# and metric constants fold into the scatter operators themselves, so the
-# kernel streams NO metric tables (saves 5 quad channels/stage) and the whole
-# weak-form scatter of all 3 RHS channels becomes ONE matmul with
-#   M2 (3*nqq, npts) = [DkT*(wjac*kx) ; DeT*(wjac*ey) ; KT*wjac]
-# against a lane-concatenated (T, 3*nqq) flux block. The node->quad interp of
-# the 4 barotropic channels AND the 3 bottom-layer primes (passed NODAL, 25
-# instead of 81 values/elem/channel) is a second single matmul. Two matmuls
-# per block total (vs 13), ~45% less HBM traffic per stage than the general
-# kernel. Reference math identical to create_rhs_btp_volume_qdf
-# (src/mod_rhs_btp.F90:102-209) up to matmul reassociation.
+        if botfr == 1:
+            pp = ldq(dppref_ref, lref) + ldq(qpl_ref, 0)   # full bottom dp'
+            spd = (cd / grav) * pp
+            tb_u = spd * (ldq(qpl_ref, 1) + ub)
+            tb_v = spd * (ldq(qpl_ref, 2) + vb)
+        elif botfr == 2:
+            ubot = ldq(qpl_ref, 1) + ub
+            vbot = ldq(qpl_ref, 2) + vb
+            spd = (cd / alpha_bot) * jnp.sqrt(ubot * ubot + vbot * vbot)
+            tb_u = spd * ubot
+            tb_v = spd * vbot
+        else:
+            tb_u = jnp.zeros_like(dp)
+            tb_v = jnp.zeros_like(dp)
+        acc_q(10, tb_u)
+        acc_q(11, tb_v)
 
+        cor = ldq(cor_ref)
+        sc_x = (cor * vdp + grav * (ldq(tau_ref, 0) - tb_u)
+                - grav * dpp * ldq(gz_ref, 0))
+        sc_y = (-cor * udp + grav * (ldq(tau_ref, 1) - tb_v)
+                - grav * dpp * ldq(gz_ref, 1))
 
-class BtpVolOpsUni(NamedTuple):
-    """Flattened operators for the uniform-geometry kernel."""
+        mu = dpp * ldq(opbp_ref)
+        mu2 = mu * (2.0 + mu)
+        ope = 1.0 + mu
+        acc_q(4, mu)
+        acc_q(5, mu2)
+        dhb = ldq(dhb_ref)
+        dHq = dhb + mu2 * (ldq(href_ref) + dhb)
+        qu = ub * udp + ope * ldq(quu_ref)
+        quv = ub * vdp + ope * ldq(quv_ref)
+        qv = vb * vdp + ope * ldq(qvv_ref)
+        acc_q(0, dHq)
+        acc_q(1, qu)
+        acc_q(2, qv)
+        acc_q(3, quv)
 
-    K: jnp.ndarray       # (npts, nqq) node->quad interp
-    M2: jnp.ndarray      # (3*nqq, npts) merged weighted scatter operator
-    ptab: jnp.ndarray    # (6|8, E, nqq): cor, tau_u, tau_v, opbp,
-    #                      dpp_ref_q[-1], H_bcl_ref [, gzx, gzy]
-    pbp_df: jnp.ndarray  # (E, npts)
-    Gx: jnp.ndarray | None = None  # (npts, npts) nodal d/dx (fused tail)
-    Gy: jnp.ndarray | None = None
+        kx, ky, ex, ey = ldq(kx_ref), ldq(ky_ref), ldq(ex_ref), ldq(ey_ref)
+        wj = ldq(wj_ref)
+        DkT, DeT, KT = DkT_ref[cols, :], DeT_ref[cols, :], KT_ref[cols, :]
 
+        def scatter(Fx, Fy, DkT=DkT, DeT=DeT, wj=wj, kx=kx, ky=ky, ex=ex,
+                    ey=ey):
+            return (dot(wj * (Fx * kx + Fy * ky), DkT)
+                    + dot(wj * (Fx * ex + Fy * ey), DeT))
 
-def operators_uniform(g, P, flat_bottom: bool, fold_massinv: bool = False,
-                      with_grad: bool = False) -> BtpVolOpsUni:
-    """Build the folded operators (inside jit, shard-local).
+        rhs[0] += scatter(udp, vdp)
+        rhs[1] += scatter(dHq + qu, quv) + dot(wj * sc_x, KT)
+        rhs[2] += scatter(quv, dHq + qv) + dot(wj * sc_y, KT)
 
-    fold_massinv: multiply the scatter operator columns by the (uniform)
-    inverse lumped mass so the kernel emits massinv*rhs directly (the fused
-    tail applies face terms pre-folded the same way). with_grad: also build
-    the nodal-gradient matrices for the LDG viscosity aux variable
-    (reference compute_gradient_uv, src/mod_barotropic_terms.F90:411-443).
-    """
-    ngl = g.psiq.shape[0]
-    K = jnp.einsum("jJ,iI->jiJI", g.psiq, g.psiq).reshape(
-        ngl**2, g.psiq.shape[1]**2)
-    Dk = jnp.einsum("jJ,iI->jiJI", g.psiq, g.dpsiq).reshape(K.shape)
-    De = jnp.einsum("jJ,iI->jiJI", g.dpsiq, g.psiq).reshape(K.shape)
-    wvec = eflat(g.wjac)[0]          # (nqq,) — identical across elements
-    kx = g.ksiq_x[0, 0, 0, 0]
-    ey = g.etaq_y[0, 0, 0, 0]
-    M2 = jnp.concatenate([Dk.T * (wvec * kx)[:, None],
-                          De.T * (wvec * ey)[:, None],
-                          K.T * wvec[:, None]], axis=0)
-    if fold_massinv:
-        M2 = M2 * eflat(g.massinv)[0][None, :]
-    Gx = Gy = None
-    if with_grad:
-        eye = jnp.eye(ngl, dtype=g.dpsi.dtype)
-        kx_df = g.ksi_x[0, 0, 0, 0]
-        ey_df = g.eta_y[0, 0, 0, 0]
-        Gx = kx_df * jnp.einsum("jJ,iI->jiJI", eye, g.dpsi).reshape(
-            ngl * ngl, ngl * ngl)
-        Gy = ey_df * jnp.einsum("jJ,iI->jiJI", g.dpsi, eye).reshape(
-            ngl * ngl, ngl * ngl)
-    chans = [eflat(P.coriolis_quad),
-             eflat(P.tau_wind[0]), eflat(P.tau_wind[1]),
-             eflat(P.one_over_pbprime),
-             eflat(P.dpp_ref_q[-1]), eflat(P.H_bcl_ref)]
-    if not flat_bottom:
-        chans += [eflat(P.grad_zbot_quad[0]), eflat(P.grad_zbot_quad[1])]
-    return BtpVolOpsUni(K=K, M2=M2, ptab=jnp.stack(chans),
-                        pbp_df=eflat(P.one_over_pbprime_df), Gx=Gx, Gy=Gy)
-
-
-def _kernel_uni(qb_ref, qpl_ref, ptab_ref, coup_ref, K_ref, M2_ref, pbp_ref,
-                *rest,
-                grav, botfr, cd, alpha_bot, flat_bottom, with_grad=False):
-    if with_grad:
-        (Gx_ref, Gy_ref, accv_in, accn_in, agr_in,
-         rhs_ref, accv_ref, accn_ref, gv_ref, agr_ref) = rest
-    else:
-        accv_in, accn_in, rhs_ref, accv_ref, accn_ref = rest
-    K, M2 = K_ref[0], M2_ref[0]
-    pet = qb_ref.dtype
-    hi = jax.lax.Precision.HIGHEST
-    T, npts = qb_ref.shape[1], qb_ref.shape[2]
-    nqq = coup_ref.shape[2]
-
-    # one matmul interpolates all 7 nodal channels to quad points
-    qn = jnp.concatenate([qb_ref[:], qpl_ref[:]], axis=0)   # (7, T, npts)
-    qq = jnp.dot(qn.reshape(7 * T, npts), K,
-                 preferred_element_type=pet, precision=hi).reshape(7, T, nqq)
-    dp, dpp, udp, vdp, ppq, up, vp = (qq[c] for c in range(7))
-
-    cor = ptab_ref[0]
-    tau_u, tau_v = ptab_ref[1], ptab_ref[2]
-    opbp = ptab_ref[3]
-    pp = ptab_ref[4] + ppq                # full bottom-layer dp'
-    Href = ptab_ref[5]
-
-    inv_dp = 1.0 / dp
-    ub = udp * inv_dp
-    vb = vdp * inv_dp
-
-    if botfr == 1:
-        spd = (cd / grav) * pp
-        tb_u = spd * (up + ub)
-        tb_v = spd * (vp + vb)
-    elif botfr == 2:
-        ubot, vbot = up + ub, vp + vb
-        spd = (cd / alpha_bot) * jnp.sqrt(ubot * ubot + vbot * vbot)
-        tb_u = spd * ubot
-        tb_v = spd * vbot
-    else:
-        tb_u = jnp.zeros_like(dp)
-        tb_v = jnp.zeros_like(dp)
-
-    sc_x = cor * vdp + grav * (tau_u - tb_u)
-    sc_y = -cor * udp + grav * (tau_v - tb_v)
-    if not flat_bottom:
-        sc_x = sc_x - grav * dpp * ptab_ref[6]
-        sc_y = sc_y - grav * dpp * ptab_ref[7]
-
-    Quu, Quv, Qvv, dHbcl = (coup_ref[c] for c in range(4))
-    mu = dpp * opbp
-    mu2 = mu * (2.0 + mu)
-    ope = 1.0 + mu
-    dHq = dHbcl + mu2 * (Href + dHbcl)
-    qu = ub * udp + ope * Quu
-    quv = ub * vdp + ope * Quv
-    qv = vb * vdp + ope * Qvv
-
-    # one matmul scatters all 3 channels: rows are [Fx | Fy | Fs] per element
-    zero = jnp.zeros_like(dp)
-    B = jnp.stack([
-        jnp.concatenate([udp, vdp, zero], axis=-1),
-        jnp.concatenate([dHq + qu, quv, sc_x], axis=-1),
-        jnp.concatenate([quv, dHq + qv, sc_y], axis=-1)])   # (3, T, 3*nqq)
-    rhs_ref[:] = jnp.dot(B.reshape(3 * T, 3 * nqq), M2,
-                         preferred_element_type=pet,
-                         precision=hi).reshape(3, T, npts)
-
-    accv = accv_in[:]
-    inc = jnp.stack([dHq, qu, qv, quv, mu, mu2, ub, vb, udp, vdp, tb_u, tb_v])
-    accv_ref[:] = accv + inc
-
-    qb = qb_ref[:]
-    t_df = qb[1] * pbp_ref[:]
-    inv_pb = 1.0 / qb[0]
-    u_df = qb[2] * inv_pb
-    v_df = qb[3] * inv_pb
-    incn = jnp.stack([t_df * (2.0 + t_df), u_df, v_df])
-    accn_ref[:] = accn_in[:] + incn
-
-    if with_grad:
-        # nodal velocity gradient (LDG viscosity aux; reference
-        # compute_gradient_uv, src/mod_barotropic_terms.F90:411-443)
-        Gx, Gy = Gx_ref[0], Gy_ref[0]
-        gv = jnp.stack([
-            jnp.dot(u_df, Gx, preferred_element_type=pet, precision=hi),
-            jnp.dot(u_df, Gy, preferred_element_type=pet, precision=hi),
-            jnp.dot(v_df, Gx, preferred_element_type=pet, precision=hi),
-            jnp.dot(v_df, Gy, preferred_element_type=pet, precision=hi)])
-        gv_ref[:] = gv
-        agr_ref[:] = agr_in[:] + gv
-
-
-@functools.partial(jax.jit, static_argnames=("grav", "botfr", "cd",
-                                             "alpha_bot", "flat_bottom",
-                                             "interpret"))
-def btp_volume_pallas_uni(ops: BtpVolOpsUni, qb_n, qpln, accv, accn, coup_q,
-                          *, grav, botfr, cd, alpha_bot, flat_bottom,
-                          interpret=False):
-    """Uniform-geometry fused volume kernel.
-
-    qb_n: (4, E, npts) nodal barotropic state; qpln: (3, E, npts) NODAL
-    bottom-layer primes (channel 0 = δdp'; constant over a solve; the kernel
-    interpolates them to quad points itself); coup_q: (4, E, nqq);
-    accv: (12, E, nqq); accn: (3, E, npts). E must be a multiple of the tile
-    (callers pad via pad_elements). Returns (rhs (3, E, npts) without
-    massinv, accv', accn').
-    """
-    rhs, accv2, accn2 = _volume_uni_call(
-        ops, qb_n, qpln, accv, accn, coup_q, None, grav=grav, botfr=botfr,
-        cd=cd, alpha_bot=alpha_bot, flat_bottom=flat_bottom,
-        interpret=interpret)
-    return rhs, accv2, accn2
-
-
-def btp_volume_grad_pallas_uni(ops: BtpVolOpsUni, qb_n, qpln, accv, accn,
-                               coup_q, agr, *, grav, botfr, cd, alpha_bot,
-                               flat_bottom, interpret=False):
-    """Volume kernel variant for the fused tail: also emits the nodal
-    velocity gradient (LDG viscosity aux) and updates its accumulator.
-    Returns (rhs, accv', accn', gv (4, E, npts), agr')."""
-    return _volume_uni_call(
-        ops, qb_n, qpln, accv, accn, coup_q, agr, grav=grav, botfr=botfr,
-        cd=cd, alpha_bot=alpha_bot, flat_bottom=flat_bottom,
-        interpret=interpret)
-
-
-def _volume_uni_call(ops, qb_n, qpln, accv, accn, coup_q, agr, *, grav,
-                     botfr, cd, alpha_bot, flat_bottom, interpret):
-    with_grad = agr is not None
-    E, npts = qb_n.shape[1], qb_n.shape[2]
-    nqq = coup_q.shape[2]
-    T = _pick_tile(E, cap=_tile_cap(npts, nqq))
-    nblk = E // T
-    dtype = qb_n.dtype
-    z = np.int32(0)
-
-    def eb(c, n):
-        return pl.BlockSpec((c, T, n), lambda i: (z, i, z),
-                            memory_space=pltpu.VMEM)
-
-    def op_spec(shape):
-        # grid-invariant operands stall the pipeline (see btp_volume_pallas);
-        # replicate along the grid dim
-        return pl.BlockSpec((1,) + shape, lambda i: (i, z, z),
-                            memory_space=pltpu.VMEM)
-
-    def rep(m):
-        return jnp.broadcast_to(m[None], (nblk,) + m.shape)
-
-    kernel = functools.partial(_kernel_uni, grav=grav, botfr=botfr, cd=cd,
-                               alpha_bot=alpha_bot, flat_bottom=flat_bottom,
-                               with_grad=with_grad)
-    kwargs = {}
-    if not interpret:
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024)
-    in_specs = [eb(4, npts), eb(3, npts), eb(ops.ptab.shape[0], nqq),
-                eb(4, nqq),
-                op_spec(ops.K.shape), op_spec(ops.M2.shape),
-                pl.BlockSpec((T, npts), lambda i: (i, z),
-                             memory_space=pltpu.VMEM)]
-    operands = [qb_n, qpln, ops.ptab, coup_q, rep(ops.K), rep(ops.M2),
-                ops.pbp_df]
-    out_specs = [eb(3, npts), eb(12, nqq), eb(3, npts)]
-    out_shape = [sds((3, E, npts), dtype, qb_n, accv),
-                 sds((12, E, nqq), dtype, qb_n, accv),
-                 sds((3, E, npts), dtype, qb_n, accn)]
-    if with_grad:
-        in_specs += [op_spec(ops.Gx.shape), op_spec(ops.Gy.shape),
-                     eb(12, nqq), eb(3, npts), eb(4, npts)]
-        operands += [rep(ops.Gx), rep(ops.Gy), accv, accn, agr]
-        out_specs += [eb(4, npts), eb(4, npts)]
-        out_shape += [sds((4, E, npts), dtype, qb_n, agr),
-                      sds((4, E, npts), dtype, qb_n, agr)]
-        aliases = {9: 1, 10: 2, 11: 4}
-    else:
-        in_specs += [eb(12, nqq), eb(3, npts)]
-        operands += [accv, accn]
-        aliases = {7: 1, 8: 2}
-    out = pl.pallas_call(
-        kernel,
-        grid=(nblk,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        input_output_aliases=aliases,
-        interpret=interpret,
-        **kwargs,
-    )(*align_vma(*operands))
-    return out
-
-
-def _tile_cap(npts: int, nqq: int) -> int:
-    """Largest element tile whose VMEM block set fits ~8 MB (leaves room for
-    double buffering inside the raised 100 MB scoped-vmem limit). Scales the
-    tile down automatically for high orders (p=8: nqq=289 -> cap ~208)."""
-    elem_bytes = 4 * (12 * npts + 34 * nqq)   # blocks + matmul scratch
-    return min(512, max(64, int(8e6 // elem_bytes)))
-
-
-def pad_elements(E: int, npts: int = 25, nqq: int = 81) -> tuple[int, int]:
-    """(padded E, tile) for the uniform kernel: avoids tile degeneration for
-    awkward element counts (e.g. prime shard shapes) by padding instead of
-    shrinking the tile. Padding is with edge-replicated elements so every
-    computed quantity stays finite (dp > 0)."""
-    cap = _tile_cap(npts, nqq)
-    T = _pick_tile(E, cap=cap)
-    if T >= 96 or E <= cap:
-        return E, T
-    Ep = ((E + 127) // 128) * 128
-    return Ep, _pick_tile(Ep, cap=cap)
-
-
-def pad_e(a, Ep: int, axis: int = 1):
-    """Pad the element axis to Ep with edge replication."""
-    E = a.shape[axis]
-    if E == Ep:
-        return a
-    pads = [(0, 0)] * a.ndim
-    pads[axis] = (0, Ep - E)
-    return jnp.pad(a, pads, mode="edge")
+    for c in range(3):
+        stn(rhs_ref, c, rhs[c])
 
 
 @functools.partial(jax.jit, static_argnames=("grav", "botfr", "cd",
                                              "alpha_bot", "interpret"))
-def btp_volume_pallas(ops: BtpVolOperators, qb_n, qpl_n, coup_q,
-                      accv, accn, *, grav, botfr, cd, alpha_bot,
-                      interpret=False):
-    """Run the fused volume kernel.
+def btp_volume_pallas(ops: BtpVolOperators, g, P, coup, qb, qpl_q, accv,
+                      accn, *, grav, botfr, cd, alpha_bot, interpret=False):
+    """Run the fused volume kernel on one element block.
 
-    qb_n: (4, E, npts) nodal barotropic state; qpl_n: (3, E, nqq) bottom
-    layer primes AT QUAD POINTS (channel 0 = δdp'; constant over a solve);
-    coup_q: (4, E, nqq) coupling fields (Quu, Quv, Qvv, dH_bcl);
-    accv: (12, E, nqq); accn: (3, E, npts).
-    Returns (rhs (3, E, npts) without massinv, accv', accn').
+    g: DeviceGeom; P: Precomputed; coup: CouplingFields. qb (4, ney, nex,
+    ngl, ngl) nodal barotropic state; qpl_q (3, ney, nex, nq, nq) bottom-
+    layer primes at quad points (channel 0 = δdp'; constant over a solve);
+    accv (12, ney, nex, nq, nq) and accn (3, ney, nex, ngl, ngl) running
+    sums in btp._VOL_ORDER / _NOD_ORDER, updated in place. Returns
+    (rhs (3, ney, nex, ngl, ngl) without massinv, accv', accn').
     """
-    E, npts = qb_n.shape[1], qb_n.shape[2]
-    nqq = coup_q.shape[2]
-    # tile cap scales with the per-element block footprint (14*npts +
-    # 44*nqq f32 in/out values, double-buffered): p=4 keeps the measured
-    # 128-element tile; p=8 (npts=81, nqq=289) drops to 64 — a fixed 128
-    # tile overflows the 16 MB scoped vmem there (18.25M allocation).
-    elem_bytes = 4 * (14 * npts + 44 * nqq)
-    T = _pick_tile(E, cap=min(128, max(32, int(6e6 // elem_bytes))))
-    nblk = E // T
-    dtype = qb_n.dtype
+    ney, nex, ngl = qb.shape[1], qb.shape[2], qb.shape[-1]
+    nq = qpl_q.shape[-1]
+    E, npts, nqq = ney * nex, ngl * ngl, nq * nq
+    nlay = P.dpp_ref_q.shape[0]
+    dtype = qb.dtype
 
-    # index-map constants must be i32 even under jax_enable_x64 (weak i64
-    # constants make Mosaic's func.return fail to legalize)
-    z = np.int32(0)
-
-    def eb(c, n):  # element-blocked spec for (c, E, n) arrays
-        return pl.BlockSpec((c, T, n), lambda i: (z, i, z),
-                            memory_space=pltpu.VMEM)
-
-    def op_spec(shape):
-        # Grid-invariant operands (an index map that ignores the grid index,
-        # or a whole-array VMEM spec) serialize the whole pipeline on this
-        # TPU stack: measured ~30 us/grid-step of stall vs ~0.2 us with a
-        # varying map — 130x on the full kernel. Replicate the tiny operator
-        # matrices along the grid dim so every block fetch is grid-varying.
-        return pl.BlockSpec((1,) + shape, lambda i: (i, z, z),
-                            memory_space=pltpu.VMEM)
-
-    def rep(m):
-        return jnp.broadcast_to(m[None], (nblk,) + m.shape)
-
-    kernel = functools.partial(_kernel, grav=grav, botfr=botfr, cd=cd,
-                               alpha_bot=alpha_bot)
-    kwargs = {}
-    if not interpret:
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024)
+    kernel = functools.partial(
+        _kernel, E=E, npts=npts, nqq=nqq, T=TILE, lref=nlay - 1, grav=grav,
+        botfr=botfr, cd=cd, alpha_bot=alpha_bot)
+    operands = [eflat(qb), eflat(qpl_q),
+                eflat(g.ksiq_x), eflat(g.ksiq_y), eflat(g.etaq_x),
+                eflat(g.etaq_y), eflat(g.wjac),
+                eflat(P.coriolis_quad), eflat(P.tau_wind),
+                eflat(P.grad_zbot_quad), eflat(P.one_over_pbprime),
+                eflat(P.dpp_ref_q), eflat(P.H_bcl_ref),
+                eflat(coup.Q_uu_dp), eflat(coup.Q_uv_dp),
+                eflat(coup.Q_vv_dp), eflat(coup.dH_bcl),
+                eflat(P.one_over_pbprime_df),
+                ops.K.astype(dtype), ops.KT.astype(dtype),
+                ops.DkT.astype(dtype), ops.DeT.astype(dtype),
+                eflat(accv), eflat(accn)]
+    n_in = len(operands)
     rhs, accv2, accn2 = pl.pallas_call(
         kernel,
-        grid=(nblk,),
-        in_specs=[eb(4, npts), eb(3, nqq), eb(5, nqq), eb(8, nqq),
-                  eb(4, nqq),
-                  op_spec(ops.K.shape), op_spec(ops.KT.shape),
-                  op_spec(ops.DkT.shape), op_spec(ops.DeT.shape),
-                  pl.BlockSpec((T, npts), lambda i: (i, z),
-                               memory_space=pltpu.VMEM),
-                  eb(12, nqq), eb(3, npts)],
-        out_specs=[eb(3, npts), eb(12, nqq), eb(3, npts)],
-        out_shape=[sds((3, E, npts), dtype, qb_n, accv),
-                   sds((12, E, nqq), dtype, qb_n, accv),
-                   sds((3, E, npts), dtype, qb_n, accn)],
-        input_output_aliases={10: 1, 11: 2},
+        grid=(pl.cdiv(E, TILE),),
+        out_shape=[sds((3 * E, npts), dtype, qb, accv),
+                   sds((12 * E, nqq), dtype, qb, accv),
+                   sds((3 * E, npts), dtype, qb, accn)],
+        input_output_aliases={n_in - 2: 1, n_in - 1: 2},
         interpret=interpret,
-        **kwargs,
-    )(*align_vma(qb_n, qpl_n, ops.met, ops.ptab, coup_q,
-                 rep(ops.K), rep(ops.KT), rep(ops.DkT), rep(ops.DeT),
-                 ops.pbp_df, accv, accn))
-    return rhs, accv2, accn2
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        name="btp_volume",
+    )(*align_vma(*operands))
+    return (rhs.reshape(3, ney, nex, ngl, ngl), accv2.reshape(accv.shape),
+            accn2.reshape(accn.shape))

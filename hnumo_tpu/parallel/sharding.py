@@ -1,6 +1,6 @@
-"""Domain decomposition over a TPU device mesh via shard_map.
+"""Domain decomposition over a device mesh via shard_map.
 
-TPU-native replacement of the reference's p4est partition + MPI halo
+Replacement of the reference's p4est partition + MPI halo
 exchange (src/p4est.c:1030-1187, src/send_receive_bound.F90,
 src/create_rhs_communicator.F90). The element grid (nely, nelx) is block-
 decomposed over a 2D `jax.sharding.Mesh` with axes ('y', 'x') and the whole
@@ -33,7 +33,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def to_host(x) -> np.ndarray:
     """Gather a (possibly multi-host-sharded) array to host NumPy.
 
-    TPU-native replacement of the reference's mpi_gatherv I/O gather
+    Replacement of the reference's mpi_gatherv I/O gather
     (src/gather_data.F90:1-66): single-process (even multi-device) arrays
     are fully addressable and np.asarray suffices; across processes the
     global array is assembled with multihost_utils.process_allgather
@@ -50,7 +50,9 @@ def make_mesh(devices=None, shape: tuple[int, int] | None = None) -> Mesh:
     """Build a 2D ('y', 'x') device mesh for element-grid decomposition.
 
     With no arguments, uses all visible devices in an as-square-as-possible
-    layout (ICI-friendly contiguous blocks via mesh_utils when available).
+    layout. Devices fill the mesh in the order given, row-major: the cards
+    of one host are joined all to all, so the layout follows the element
+    decomposition alone.
     """
     if devices is None:
         devices = jax.devices()
@@ -62,13 +64,7 @@ def make_mesh(devices=None, shape: tuple[int, int] | None = None) -> Mesh:
         shape = (py, n // py)
     if shape[0] * shape[1] != n:
         raise ValueError(f"mesh shape {shape} != {n} devices")
-    try:
-        from jax.experimental import mesh_utils
-
-        dev_array = mesh_utils.create_device_mesh(shape, devices=devices)
-    except Exception:
-        dev_array = np.asarray(devices).reshape(shape)
-    return Mesh(dev_array, axis_names=("y", "x"))
+    return Mesh(np.asarray(devices).reshape(shape), axis_names=("y", "x"))
 
 
 def state_spec():

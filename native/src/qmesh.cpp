@@ -1,6 +1,6 @@
 // qmesh: native mesh front-end for hnumo_tpu.
 //
-// The TPU-native counterpart of the reference's p4est C glue
+// The counterpart of the reference's p4est C glue
 // (src/p4est.c:1030-2043): builds quad-grid connectivity from an external
 // mesh, infers the logically-structured (nely, nelx) element layout with
 // consistent per-element orientation, extracts the corner-vertex table, and

@@ -1,6 +1,6 @@
 """Coverage for config branches not exercised by the golden gates.
 
-VERDICT r1 item 5: vertical-shear tridiagonal solve (ad_mlswe>0), quad-family
+Option coverage: vertical-shear tridiagonal solve (ad_mlswe>0), quad-family
 LDG viscosity (method_visc=1) serial + sharded, no-slip walls, kstages 1..4 +
 LSRK, and dam/seamount initial conditions. Every StaticConfig branch is now
 executed by at least one test.
@@ -235,7 +235,7 @@ def test_scan_stages_parity():
 
 def test_lsrk_variant():
     """Correct low-storage Carpenter-Kennedy LSRK5(4): converges to the
-    SSP(5,3) reference solution as dt_btp shrinks (VERDICT r2 item 8)."""
+    SSP(5,3) reference solution as dt_btp shrinks."""
     errs = []
     for dtb in (1.0, 0.5):
         m, s = _run_and_gate(_bump(ti_method_btp="lsrk", kstages=5,
@@ -264,7 +264,7 @@ def test_lsrk_ref_verbatim_diverges():
 
 # ---------------------------------------------------------------------------
 # wind-stress vertical distribution: intent mode vs verbatim-reference mode
-# (VERDICT r1 item 8; reference slip at src/mod_create_rhs_mlswe.F90:380-382)
+# (reference slip at src/mod_create_rhs_mlswe.F90:380-382)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("compat", [False, True])
@@ -351,7 +351,7 @@ def test_seamount_smoke():
 
 
 # ---------------------------------------------------------------------------
-# N-layer configurations (VERDICT r1 item 6: H_face layer-overlap at L > 2;
+# N-layer configurations (H_face layer-overlap at L > 2;
 # reference lakeAtrest supports L >= 5, src/initial_conditions.F90:130-169)
 # ---------------------------------------------------------------------------
 
@@ -471,7 +471,7 @@ def test_p8_pallas_interpret_matches_xla():
     cfg = _bump(nopx=8, nopy=8, nelx=4, nely=4, dt=5.0, dt_btp=0.5)
     m_x = Model(cfg)
     m_p = Model(Config(**{**cfg.__dict__, "use_pallas": "on"}))
-    assert m_p.static.use_pallas and m_p.static.uniform_geom
+    assert m_p.static.use_pallas and m_p.static.pallas_interpret
     s_x = m_x.step(m_x.state0)
     s_p = m_p.step(m_p.state0)
     for name in ("qb_df", "q_df", "qprime_df"):

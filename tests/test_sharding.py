@@ -119,6 +119,20 @@ def test_sharded_batched_faces_matches_serial():
     assert np.all(np.abs(massN - mass0) / mass0 < 1e-12)
 
 
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1)])
+def test_make_mesh_device_order(shape):
+    devs = jax.devices()[:4]
+    mesh = make_mesh(devs, shape=shape)
+    assert dict(mesh.shape) == {"y": shape[0], "x": shape[1]}
+    # row-major in the order given: no topology-driven reordering
+    assert list(mesh.devices.flat) == list(devs)
+
+
+def test_make_mesh_rejects_mismatch():
+    with pytest.raises(ValueError, match="mesh shape"):
+        make_mesh(jax.devices()[:4], shape=(3, 2))
+
+
 def test_state_sharding_layout():
     cfg = _cfg()
     mesh = make_mesh(jax.devices(), shape=(2, 4))

@@ -16,7 +16,7 @@ band for the f32 production mode (docs/source/test.rst:55-66 judges the
 reference on exactly these KE/SSH climatology curves).
 
 Usage:
-  python tools/dgyre_campaign.py --days 100 --out docs/artifacts/dgyre_f32_tpu.json
+  python tools/dgyre_campaign.py --days 100 --out docs/artifacts/dgyre_f32_h100.json
   python tools/dgyre_campaign.py --days 100 --f64 --cpu --out docs/artifacts/dgyre_f64_cpu.json
 """
 import argparse
@@ -63,11 +63,10 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+
+    from hnumo_tpu.driver import card_line, select_platform
+    select_platform(args.cpu)
     if args.f64:
         jax.config.update("jax_enable_x64", True)
 
@@ -84,6 +83,7 @@ def main():
                                   dt_btp=25.0 * 25 / args.nel)
     m = Model(cfg)
     dev = jax.devices()[0]
+    card = "cpu" if args.cpu else card_line()
 
     steps_per_sample = max(1, round(args.sample_days * 86400.0 / cfg.dt))
     n_samples = int(round(args.days * 86400.0 / cfg.dt / steps_per_sample))
@@ -102,7 +102,8 @@ def main():
                         dt=cfg.dt, dt_btp=cfg.dt_btp,
                         dtype="float64" if args.f64 else "float32",
                         device=f"{dev.platform} "
-                               f"{getattr(dev, 'device_kind', '?')}"),
+                               f"{getattr(dev, 'device_kind', '?')}",
+                        card=card),
             days=args.days, steps=done, wall_s=round(wall, 1),
             ms_per_step=round(wall / max(done - 1, 1) * 1e3, 2),
             ok=bool(s.ok), complete=final,

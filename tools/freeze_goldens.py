@@ -22,7 +22,7 @@ def force_cpu_f64():
 
     Called from __main__, NOT at import: other tools (dgyre_campaign)
     import the config builders from this module and must keep their own
-    backend (a module-level pin silently dragged the TPU campaign onto
+    backend (a module-level pin would silently drag a GPU campaign onto
     the CPU). Importing jax at module scope is safe — only the config
     updates pin a backend."""
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -102,5 +102,5 @@ if __name__ == "__main__":
     force_cpu_f64()
     freeze("bump_traj", bump_config(), [3, 10])
     # 100 dt = ~14 model hours: long enough to pin slow drift in the
-    # wind/friction/viscosity wiring (VERDICT r2 item 3), short enough for CI
+    # wind/friction/viscosity wiring, short enough for CI
     freeze("dgyre_traj", dgyre_config(), [3, 10, 50, 100])

@@ -2,14 +2,15 @@
 
 Measures the sharded-vs-serial full-step time ratio at fixed GLOBAL problem
 size (strong scaling on one host) and prints the per-step halo traffic the
-XLA latency-hiding scheduler must cover (VERDICT r2 item 5; the reference's
+XLA latency-hiding scheduler must cover (the reference's
 pre/post communicator split is src/mod_rhs_btp.F90:38-46).
 
 Run:  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
           python tools/overlap_probe.py [--nel 32] [--json out.json]
 
 Caveat: CPU "devices" are host threads sharing one memory system, so the
-ratio measures XLA's scheduling/collective overhead, not ICI. A ratio near
+ratio measures XLA's scheduling/collective overhead, not the links
+between cards. A ratio near
 (ideal) 1/8 of serial per-shard compute means the ~200 ppermute rounds per
 baroclinic dt are being overlapped/batched acceptably; a ratio >> compute
 share means the halo path serializes and the interior/boundary split of
@@ -85,7 +86,7 @@ def main():
         "btp_stages_per_dt": stages,
         "halo_bytes_per_dt": halo_bytes_dt,
         "note": "fake CPU mesh: measures XLA collective scheduling overhead,"
-                " not ICI",
+                " not the links between cards",
     }
     print(json.dumps(out, indent=1))
     if args.json:

@@ -4,8 +4,8 @@ Holds ELEMENTS PER SHARD fixed and grows the mesh (1, 2, 4, 8 virtual CPU
 devices), timing the full sharded baroclinic step. On the fake backend the
 ppermutes are memcpys, so this measures the COLLECTIVE/PROGRAM overhead the
 decomposition adds (halo slicing, edge-shard selects, extra copies) — the
-part of the scaling story that can be validated without N real chips; the
-ICI latency/bandwidth part is modeled analytically in docs/parallelism.md.
+part of the scaling story that can be validated without N real cards; the
+latency of the links between cards is not measured by it.
 Efficiency = t(1 shard) / t(N shards) at fixed per-shard work; a perfect
 program scales at 1.0 on the fake backend (same per-shard FLOPs).
 
